@@ -6,11 +6,13 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``dist_gnn_tpu_torch/csrc`` with nvcc,
-then drives the port's SAGE serving path at the full width of the bench
-config (GraphSAGE, 3 layers, in 100, hidden 256, 47 classes, bf16
-compute; fanout (15, 10, 5), batch 512, dedup-free last hop; the
-500k-node synthetic graph with ~30M edges, all in device memory; random
-weights from a seed).  Phases, one JSON line each:
+then drives the port's serving and training paths at the full width of
+the bench configs: GraphSAGE, 3 layers, in 100, hidden 256, 47 classes,
+and GAT(100, 128, 47, 3 layers, 4 heads), both bf16 compute with f32
+params and dropout 0.5; fanout (15, 10, 5), batch 512, dedup-free last
+hop; Adam lr 1e-3 with coupled weight decay 5e-4; the 500k-node synthetic
+graph with ~30M edges, all in device memory; random weights from a seed.
+Phases, one JSON line each:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel source compiled, one nvcc each, in parallel;
@@ -28,7 +30,20 @@ weights from a seed).  Phases, one JSON line each:
    request;
 6. full-graph inference: ``full_graph_inference`` over all 500k nodes,
    timed, and held against the same function on the CPU on a 20k-node
-   graph.
+   graph;
+7. kernels: the K3 backward at SAGE layers 1 and 2, and K4 and K5 at the
+   three GAT layers, held against their plain versions on the card in
+   bf16, plus f32, an odd head width and all-masked rows; times as in 4;
+8. training_sage / training_gat: the loss and every parameter's gradient
+   on one step's blocks against the same step with every kernel swapped
+   for its plain version, in f32 and in bf16, then 8 ``Trainer.train_step`` calls timed, with
+   the launch counters per step (SAGE: K1 1, K3 3, K3-bwd 2; GAT: K1 1,
+   K4 3, K5 3), a stage breakdown and the device's busy share;
+9. serving_gat: ``Trainer.eval_step`` with the GAT model, K4 three times
+   per request, logits against the plain path;
+10. convergence: a fresh SAGE trained for 2 epochs over the training seeds
+    (bench.py:399-441), then ``full_graph_inference`` and the validation
+    accuracy, which must reach 0.99 (the pinned 1.0 less the margin).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.  Any
@@ -38,15 +53,21 @@ It needs no network and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 FAN_OUT = (15, 10, 5)
 BATCH = 512
 N_REQUESTS = 8
+N_STEPS = 8
+CONV_EPOCHS = 2  # bench.py:54
+VAL_ACC_MIN = 1.0 - 0.01  # the pinned target less its margin (bench.py:52-53)
 # bf16 tolerances, as a share of the reference's largest magnitude: K3
 # sums in f32 and rounds once where the plain version rounds the sum and
 # the quotient in bf16, so single elements differ by a bf16 ulp (2**-8
@@ -54,6 +75,31 @@ N_REQUESTS = 8
 K3_BF16_TOL = 1e-2
 K3_F32_TOL = 1e-5
 LOGITS_BF16_TOL = 5e-2
+# K4 in bf16, as a share of the plain version's largest magnitude: both
+# round alpha and agg to bf16, but from f32 sums taken in another order, so
+# an element may land one bf16 ulp (2**-8) apart before the projection.
+K4_BF16_TOL = 1e-2
+# f32: the same arithmetic summed in another order.
+K4_F32_TOL = 1e-5
+# The K3 backward and K5 in f32: sums in another order, and the atomic adds
+# (K3-bwd's rows, K5's dW across blocks) in an order that changes per run.
+BWD_F32_TOL = 1e-4
+# ... and on bf16 inputs: K5 rounds agg to bf16 before dW and writes dxn in
+# bf16, the K3 backward casts its f32 sum to bf16, each from sums in
+# another order than the plain version's.
+BWD_BF16_TOL = 5e-2
+# One training step's loss and gradients, kernels against the plain path.
+# In f32 the two differ by summation order and atomics only: every
+# gradient within GRAD_F32_TOL of the plain one's largest magnitude.  In
+# bf16 the rounding alone moves single elements of this step's gradients
+# by several percent of the largest (the phase prints the plain bf16
+# path's distance from f32 beside the kernels'), so there the check is
+# norm-wise: ||g - g_f32|| / ||g_f32|| within GRAD_BF16_TOL, which a
+# missing or mis-scaled gradient path (an error of the order of the
+# gradient itself) cannot meet.  The bf16 loss is held to LOGITS' limit.
+LOSS_F32_TOL = 1e-5
+GRAD_F32_TOL = 1e-3
+GRAD_BF16_TOL = 0.2
 
 
 def emit(obj) -> None:
@@ -76,6 +122,20 @@ def max_abs(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max()) if ref.numel() else 0.0
 
 
+def norm_err(out, ref) -> float:
+    """||out - ref|| / ||ref|| in f32 (0 when both are all 0)."""
+    den = float(ref.float().norm())
+    num = float((out.float() - ref.float()).norm())
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def share_err(out, ref) -> float:
+    """max |out - ref| as a share of max |ref| (0 when both are all 0)."""
+    scale = float(ref.float().abs().max()) if ref.numel() else 0.0
+    err = max_abs(out, ref)
+    return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
 def main() -> int:
     import torch
 
@@ -85,15 +145,18 @@ def main() -> int:
 
     import torch.nn.functional as F
 
+    t_script = time.perf_counter()
     from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
     from dist_gnn_tpu_torch.dataloading.seeds import SeedGenerator
     from dist_gnn_tpu_torch.graph import HostGraph
     from dist_gnn_tpu_torch.kernels import build
+    from dist_gnn_tpu_torch.models.gat import GAT
     from dist_gnn_tpu_torch.models.inference import full_graph_inference
     from dist_gnn_tpu_torch.models.sage import SAGE, contiguous_mean
+    from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, prng, spmm
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
-    from dist_gnn_tpu_torch.training import Trainer
+    from dist_gnn_tpu_torch.training import Trainer, masked_nll_loss
     from dist_gnn_tpu_torch.utils.timing import cuda_time_ms, profile_device
 
     def device_ms(fn, kernel_name):
@@ -372,10 +435,417 @@ def main() -> int:
           "check_nodes": shg.num_nodes,
           "check_rel_err_vs_cpu": small_err, **card})
 
-    # ---- 7. kernels, card, result -----------------------------------------
+    # ---- 7. K3 backward, K4 and K5 against their plain versions ---------
+    def call_device_ms(fn, names, iters=10):
+        """Device ms per call of ``fn`` in the kernels whose names contain
+        one of ``names``, from the profiler; None if it recorded none."""
+        kernels, _ = profile_device(fn, iters=iters)
+        hits = [ms for k, (ms, _) in kernels.items() if any(n in k for n in names)]
+        return sum(hits) / iters if hits else None
+
+    kgen = torch.Generator(device=cuda).manual_seed(3)
+    sage_blocks = list(reversed(blocks))  # input-first, as the model sees them
+
+    # K3 backward where a SAGE step runs it: layers 1 and 2 (layer 0's
+    # input, the gathered features, needs no gradient)
+    k3b_layers, k3b_err = [], 0.0
+    k3b_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for l in (1, 2):
+        blk = sage_blocks[l]
+        S, kk = blk.neigh_slots.shape
+        cap, width = blk.num_src, 256
+        d_out = torch.randn(S, width, device=cuda, generator=kgen).to(torch.bfloat16)
+        slots, m = blk.neigh_slots, blk.neigh_mask
+        got = gather.gather_mean_bwd(d_out, slots, m, cap)
+        want = gather.gather_mean_bwd_plain(d_out, slots, m, cap)
+        err = share_err(got, want)
+        check(err <= BWD_BF16_TOL, f"K3-bwd bf16 layer {l}: error {err} > {BWD_BF16_TOL}")
+        err32 = share_err(gather.gather_mean_bwd(d_out.float(), slots, m, cap),
+                          gather.gather_mean_bwd_plain(d_out.float(), slots, m, cap))
+        check(err32 <= BWD_F32_TOL, f"K3-bwd f32 layer {l}: error {err32} > {BWD_F32_TOL}")
+        k3b_err = max(k3b_err, max_abs(got, want))
+        # d_out, slots and mask read once, the [cap, F] gradient written once
+        nbytes = S * width * 2 + S * kk * 5 + cap * width * 2
+        table = torch.zeros(cap + 1, width, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        bag = torch.where(m, slots, cap).long()
+        bag_out = F.embedding_bag(bag, table, mode="mean", padding_idx=cap)
+        lay = {
+            "layer": l, "S": S, "k": kk, "F": width, "cap": cap, "valid_slots": int(m.sum()),
+            "bytes": nbytes, "err_bf16": err, "err_f32": err32,
+            "ms": cuda_time_ms(lambda: gather.gather_mean_bwd(d_out, slots, m, cap)),
+            "plain_ms": cuda_time_ms(lambda: gather.gather_mean_bwd_plain(d_out, slots, m, cap)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "device_ms": call_device_ms(lambda: gather.gather_mean_bwd(d_out, slots, m, cap),
+                                        ["gather_mean_bwd_kernel"]),
+            "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                bag_out, table, d_out, retain_graph=True)),
+        }
+        for key in k3b_sum:
+            k3b_sum[key] += lay[key]
+        k3b_layers.append(lay)
+    odd_d = torch.randn(50, 37, device=cuda, generator=kgen).to(torch.bfloat16)
+    odd_s = torch.randint(0, 300, (50, 7), device=cuda, dtype=torch.int32, generator=kgen)
+    odd_m = torch.rand(50, 7, device=cuda, generator=kgen) < 0.6
+    odd_m[:2] = False
+    odd_got = gather.gather_mean_bwd(odd_d, odd_s, odd_m, 300)
+    check(share_err(odd_got, gather.gather_mean_bwd_plain(odd_d, odd_s, odd_m, 300)) <= BWD_BF16_TOL,
+          "K3-bwd odd F")
+    k3b = {
+        "name": "gather_mean_bwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
+        "replaces": "dist_gnn_tpu/ops/gather_pallas.py:279", "max_abs_err": k3b_err,
+        **k3b_sum, "bound_by": "bytes",
+    }
+    emit({"phase": "kernel", "kernel": "K3-bwd gather_mean_bwd", "dtype": "bfloat16",
+          "replaces_note": "the backward of K3; the JAX package differentiates its jnp mean "
+                           "through XLA and has no Pallas backward",
+          "times_are": "sums over SAGE layers 1 and 2 of one step", "layers": k3b_layers,
+          "library_is": "backward of F.embedding_bag(mode='mean')", **k3b, **card})
+
+    # K4 and K5 at the three layers of the GAT bench config on one request's
+    # blocks: layer 0 reads the gathered features as a free k-major reshape,
+    # deeper layers a k-major gather of a random hidden [num_src, 512]
+    H = 4
+    gat_dims = [(100, 128), (512, 128), (512, meta["num_classes"])]
+    k4_layers, k5_layers = [], []
+    k4_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    k5_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    k4_err = k5_err = 0.0
+    k4_flop_bound = k5_flop_bound = True
+    for l, blk in enumerate(sage_blocks):
+        S, kk = blk.neigh_slots.shape
+        E, D = gat_dims[l]
+        if l == 0:
+            x_dst, x_n = out[:S], out[S:].reshape(kk, S, E)
+        else:
+            h = torch.randn(blk.num_src, E, device=cuda, generator=kgen).to(torch.bfloat16)
+            safe_l = torch.where(blk.neigh_mask, blk.neigh_slots, 0)
+            x_dst, x_n = h[:S], h[safe_l.T.long()].contiguous()
+        wal = (torch.randn(E, H, device=cuda, generator=kgen) * 0.1).to(torch.bfloat16)
+        war = (torch.randn(E, H, device=cuda, generator=kgen) * 0.1).to(torch.bfloat16)
+        w = (torch.randn(E, H * D, device=cuda, generator=kgen) * 0.1).to(torch.bfloat16)
+        el = x_dst.float() @ wal.float()
+        er3 = (x_n.reshape(kk * S, E).float() @ war.float()).reshape(kk, S, H)
+        mask_f = blk.neigh_mask.float()
+        g = torch.randn(S, H * D, device=cuda, generator=kgen).to(torch.bfloat16)
+        need_dx = l > 0  # as in a training step
+        fwd_args = (x_n, el, er3, mask_f, w, 0.2)
+        bwd_args = (x_n, el, er3, mask_f, w, g, 0.2, need_dx)
+        got = gat_ops.gat_fwd(*fwd_args)
+        want = gat_ops.gat_fwd_plain(*fwd_args)
+        err4 = share_err(got, want)
+        check(err4 <= K4_BF16_TOL, f"K4 bf16 layer {l}: error {err4} > {K4_BF16_TOL}")
+        k4_err = max(k4_err, max_abs(got, want))
+        gotb = gat_ops.gat_bwd(*bwd_args)
+        wantb = gat_ops.gat_bwd_plain(*bwd_args)
+        err5 = {}
+        for name, a, b in zip(("dw", "d_el", "d_er3", "dxn"), gotb, wantb):
+            check((a is None) == (b is None) == (name == "dxn" and not need_dx), f"K5 {name} presence")
+            if a is None:
+                continue
+            err5[name] = share_err(a, b)
+            check(err5[name] <= BWD_BF16_TOL, f"K5 bf16 layer {l} {name}: error {err5[name]}")
+            k5_err = max(k5_err, max_abs(a, b))
+        if l == 1:  # f32 at one shape
+            f32_args = (x_n.float(), el, er3, mask_f, w.float(), 0.2)
+            e32 = share_err(gat_ops.gat_fwd(*f32_args), gat_ops.gat_fwd_plain(*f32_args))
+            check(e32 <= K4_F32_TOL, f"K4 f32 layer 1: error {e32} > {K4_F32_TOL}")
+            b32 = f32_args[:5] + (g.float(), 0.2, True)
+            for name, a, b in zip(("dw", "d_el", "d_er3", "dxn"), gat_ops.gat_bwd(*b32),
+                                  gat_ops.gat_bwd_plain(*b32)):
+                e = share_err(a, b)
+                check(e <= BWD_F32_TOL, f"K5 f32 layer 1 {name}: error {e} > {BWD_F32_TOL}")
+        if l == 2:  # rows with every slot masked give exactly 0
+            holes = mask_f.clone()
+            holes[:3] = 0
+            o = gat_ops.gat_fwd(x_n, el, er3, holes, w, 0.2)
+            check(bool((o[:3] == 0).all()), "K4 all-masked rows must be 0")
+            hb = gat_ops.gat_bwd(x_n, el, er3, holes, w, g, 0.2, True)
+            check(bool((hb[1][:3] == 0).all() and (hb[3][:, :3] == 0).all()),
+                  "K5 all-masked rows must have 0 gradients")
+        HD = H * D
+        in_bytes = kk * S * E * 2 + S * H * 4 + kk * S * H * 4 + S * kk * 4 + E * HD * 2
+        b4 = in_bytes + S * HD * 2
+        f4 = 2 * kk * S * E * H + 2 * S * E * HD
+        b5 = in_bytes + S * HD * 2 + E * HD * 4 + S * H * 4 + kk * S * H * 4 \
+            + (kk * S * E * 2 if need_dx else 0)
+        f5 = 2 * S * HD * E * 2 + 2 * kk * S * E * H * (3 if need_dx else 2)
+        bound4 = max(b4 / HBM_BYTES_PER_S, f4 / BF16_FLOPS) * 1e3
+        bound5 = max(b5 / HBM_BYTES_PER_S, f5 / BF16_FLOPS) * 1e3
+        k4_flop_bound &= f4 / BF16_FLOPS > b4 / HBM_BYTES_PER_S
+        k5_flop_bound &= f5 / BF16_FLOPS > b5 / HBM_BYTES_PER_S
+        shape = {"layer": l, "K": kk, "S": S, "E": E, "H": H, "D": D}
+        lay4 = {**shape, "bytes": b4, "flops": f4, "err_bf16": err4,
+                "ms": cuda_time_ms(lambda: gat_ops.gat_fwd(*fwd_args)),
+                "plain_ms": cuda_time_ms(lambda: gat_ops.gat_fwd_plain(*fwd_args), iters=5),
+                "bound_ms": bound4,
+                "device_ms": call_device_ms(lambda: gat_ops.gat_fwd(*fwd_args), ["gat_fwd_kernel"])}
+        lay5 = {**shape, "need_dx": need_dx, "bytes": b5, "flops": f5, "err_bf16": err5,
+                "ms": cuda_time_ms(lambda: gat_ops.gat_bwd(*bwd_args)),
+                "plain_ms": cuda_time_ms(lambda: gat_ops.gat_bwd_plain(*bwd_args), iters=5),
+                "bound_ms": bound5,
+                "device_ms": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args),
+                                            ["gat_bwd_rows_kernel", "gat_dw_kernel"]),
+                "device_ms_rows_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args),
+                                                        ["gat_bwd_rows_kernel"]),
+                "device_ms_dw_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args),
+                                                      ["gat_dw_kernel"])}
+        for acc, lay in ((k4_sum, lay4), (k5_sum, lay5)):
+            for key in acc:
+                acc[key] += lay[key]
+        k4_layers.append(lay4)
+        k5_layers.append(lay5)
+    tiny = [torch.randn(*sh, device=cuda, generator=kgen) for sh in
+            ((5, 300, 37), (300, 3), (5, 300, 3), (300, 21), (300, 21))]
+    t_mask = (torch.rand(300, 5, device=cuda, generator=kgen) < 0.7).float()
+    t_mask[:4] = 0
+    t_args = (tiny[0], tiny[1], tiny[2], t_mask, tiny[3][:37].contiguous() * 0.1)
+    t_out = gat_ops.gat_fwd(*t_args, 0.2)
+    check(share_err(t_out, gat_ops.gat_fwd_plain(*t_args, 0.2)) <= K4_F32_TOL, "K4 f32 odd D=7")
+    check(bool((t_out[:4] == 0).all()), "K4 f32 all-masked rows must be 0")
+    for a, b in zip(gat_ops.gat_bwd(*t_args, tiny[4], 0.2, True),
+                    gat_ops.gat_bwd_plain(*t_args, tiny[4], 0.2, True)):
+        check(share_err(a, b) <= BWD_F32_TOL, "K5 f32 odd D=7")
+    no_library = "none: no one PyTorch call computes the fused softmax-aggregate-project"
+    k4 = {"name": "gat_fwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gat.cu",
+          "replaces": "dist_gnn_tpu/ops/gat_pallas.py:206", "max_abs_err": k4_err, **k4_sum,
+          "bound_by": "operations" if k4_flop_bound else "bytes", "library_ms": None}
+    k5 = {"name": "gat_bwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gat.cu",
+          "replaces": "dist_gnn_tpu/ops/gat_pallas.py:230", "max_abs_err": k5_err, **k5_sum,
+          "bound_by": "operations" if k5_flop_bound else "bytes", "library_ms": None}
+    emit({"phase": "kernel", "kernel": "K4 gat_fwd", "dtype": "bfloat16", "library": no_library,
+          "times_are": "sums over the three GAT layers of one step", "layers": k4_layers,
+          **k4, **card})
+    emit({"phase": "kernel", "kernel": "K5 gat_bwd", "dtype": "bfloat16", "library": no_library,
+          "times_are": "sums over the three GAT layers of one step (need_dx on layers 1, 2)",
+          "layers": k5_layers, **k5, **card})
+
+    # ---- 8. training: gradients against the plain path, then 8 steps -----
+    counters = {"gather_rows": gather.gather_rows, "gather_mean": gather.gather_mean,
+                "gather_mean_bwd": gather.gather_mean_bwd, "gat_fwd": gat_ops.gat_fwd,
+                "gat_bwd": gat_ops.gat_bwd}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Every kernel on the training path swapped for its plain version,
+        on the same CUDA tensors (a check of the kernels, not a mode of the
+        port)."""
+        swaps = [(gather, "_gather_mean_fwd", spmm.gather_mean),
+                 (gather, "gather_mean_bwd", gather.gather_mean_bwd_plain),
+                 (gat_ops, "gat_fwd", gat_ops.gat_fwd_plain),
+                 (gat_ops, "gat_bwd", gat_ops.gat_bwd_plain)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        try:
+            for mod, name, fn in swaps:
+                setattr(mod, name, fn)
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    def loss_and_grads(m, blks, feats, labs, smask, drop_keys):
+        m.zero_grad(set_to_none=True)
+        loss, _ = masked_nll_loss(m, False, blks, feats, labs, smask, drop_keys)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+
+    def safe_ids(blks):
+        return torch.where(blks[-1].frontier_mask, blks[-1].frontier, 0)
+
+    train_batches = list(itertools.islice(
+        SeedGenerator(arrays["train_idx"], BATCH, shuffle=True, drop_last=True, device=cuda)
+        .epoch(torch.Generator(device=cuda).manual_seed(100)), N_STEPS + 1))
+
+    features32 = features.float()
+
+    def train_phase(name, m, m32, per_step, seed):
+        """``m32`` is an f32 copy of ``m`` (compute_dtype None, same params)."""
+        tr = Trainer(model=m, fan_out=FAN_OUT, dedup_last=False, device=cuda)
+        tgen = torch.Generator(device=cuda).manual_seed(seed)
+        s0, mk0 = train_batches[0]
+        blks, _ = sample_blocks(graph, s0, mk0, FAN_OUT, False, tgen, dedup_last=False)
+        labs = torch.where(mk0, labels[torch.where(mk0, s0, 0).long()], 0)
+        drop = [prng.random_keys(tgen, (b.num_dst,), cuda) for b in list(reversed(blks))[:-1]]
+        # one step's loss and gradients, kernels against their plain
+        # versions: in f32, where they must agree to rounding, and in bf16
+        # against the f32 gradients, norm-wise (see GRAD_BF16_TOL)
+        res = {}
+        for tag, mm, feat_store in (("f32", m32, features32), ("bf16", m, features)):
+            feats = gather.gather_rows(feat_store, safe_ids(blks))
+            reset_counts()
+            res[tag] = loss_and_grads(mm, blks, feats, labs, mk0, drop)
+            kernel_counts = read_counts()
+            with plain_kernels():
+                res[tag + "_plain"] = loss_and_grads(mm, blks, feats, labs, mk0, drop)
+            check(read_counts() == kernel_counts, f"{name}: the plain path launched a kernel")
+            check(kernel_counts["gather_mean_bwd"] + kernel_counts["gat_bwd"] > 0,
+                  f"{name}: no backward kernel ran")
+        losses_chk = {tag: float(res[tag][0]) for tag in res}
+        check(all(v == v and abs(v) < float("inf") for v in losses_chk.values()), f"{name}: loss not finite")
+        check(abs(losses_chk["f32"] - losses_chk["f32_plain"]) <= LOSS_F32_TOL * abs(losses_chk["f32_plain"]),
+              f"{name}: f32 loss {losses_chk}")
+        check(abs(losses_chk["bf16"] - losses_chk["bf16_plain"]) <= LOGITS_BF16_TOL * abs(losses_chk["bf16_plain"]),
+              f"{name}: bf16 loss {losses_chk}")
+        g32, g32p, g16, g16p = (res[t][1] for t in ("f32", "f32_plain", "bf16", "bf16_plain"))
+        grad_err = {n: {"f32_kernel_vs_plain": share_err(g32[n], g32p[n]),
+                        "bf16_kernel_vs_f32_norm": norm_err(g16[n], g32p[n]),
+                        "bf16_plain_vs_f32_norm": norm_err(g16p[n], g32p[n]),
+                        "bf16_kernel_vs_f32_share": share_err(g16[n], g32p[n]),
+                        "bf16_plain_vs_f32_share": share_err(g16p[n], g32p[n])} for n in g32p}
+        bad = {n: e for n, e in grad_err.items()
+               if not (e["f32_kernel_vs_plain"] <= GRAD_F32_TOL
+                       and e["bf16_kernel_vs_f32_norm"] <= GRAD_BF16_TOL)}
+        check(not bad, f"{name}: gradients off the plain path: {bad}")
+
+        tr.train_step(graph, features, labels, s0, mk0, tgen)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        mets = [tr.train_step(graph, features, labels, s, mk, tgen) for s, mk in train_batches[1:]]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / N_STEPS
+        launches = read_counts()
+        want = {k: v * N_STEPS for k, v in per_step.items()}
+        check(launches == want, f"{name}: launches {launches}, expected {want}")
+        losses = [float(mt["loss"]) for mt in mets]
+        check(all(map(lambda v: v == v and abs(v) < float("inf"), losses)), f"{name}: loss not finite")
+        check(all(int(mt["sampler_overflow"]) == 0 for mt in mets), f"{name}: sampler overflow")
+        # trained edges per step (bench.py:290-295): valid sampled slots of
+        # the same seeds, sampled again with other keys
+        egen = torch.Generator(device=cuda).manual_seed(seed + 1)
+        edges = sum(int(b.neigh_mask.sum())
+                    for s, mk in train_batches[1:]
+                    for b in sample_blocks(graph, s, mk, FAN_OUT, False, egen, dedup_last=False)[0])
+        edges /= N_STEPS
+        # where a step's time goes: each stage alone, synchronised
+        stage = {"sample": 0.0, "gather": 0.0, "forward": 0.0, "backward": 0.0, "adam": 0.0}
+        for s, mk in train_batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bl, _ = sample_blocks(graph, s, mk, FAN_OUT, False, tgen, dedup_last=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ft = gather.gather_rows(features, safe_ids(bl))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            lb = torch.where(mk, labels[torch.where(mk, s, 0).long()], 0)
+            loss, _ = masked_nll_loss(m, False, bl, ft, lb, mk, tgen)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            tr.optimizer.step()
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            for key, dt in zip(stage, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+                stage[key] += dt
+        prof_steps = 3
+        s1, mk1 = train_batches[1]
+        kern, prof_wall = profile_device(
+            lambda: tr.train_step(graph, features, labels, s1, mk1, tgen), iters=prof_steps)
+        busy = sum(ms for ms, _ in kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
+        emit({"phase": name, "steps": N_STEPS, "batch": BATCH, "ms_per_step": step_s * 1e3,
+              "trained_edges_per_s": edges / step_s, "valid_edges_per_step": edges,
+              "losses": losses, "launches": launches,
+              "launches_per_step": {k: v / N_STEPS for k, v in launches.items()},
+              "loss_kernel_and_plain": losses_chk, "grad_share_err": grad_err,
+              "stage_ms_per_step": {k: v / N_STEPS * 1e3 for k, v in stage.items()},
+              "profiled_ms_per_step": prof_wall / prof_steps,
+              "device_busy_share": busy / prof_wall if kern else None,
+              "device_kernels_per_step": sum(n for _, n in kern.values()) / prof_steps,
+              "top_kernels_ms_per_step": [[k[:80], ms / prof_steps, n / prof_steps]
+                                          for k, (ms, n) in top], **card})
+        return tr, launches
+
+    sage_train = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(4), device=cuda)
+    sage32 = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), device=cuda)
+    sage32.load_state_dict(sage_train.state_dict())
+    _, sage_launches = train_phase(
+        "training_sage", sage_train, sage32,
+        {"gather_rows": 1, "gather_mean": 3, "gather_mean_bwd": 2, "gat_fwd": 0, "gat_bwd": 0}, 20)
+    k3b["launches"] = sage_launches["gather_mean_bwd"]
+    gat_model = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4,
+                    compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(5),
+                    device=cuda)
+    gat32 = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4, device=cuda)
+    gat32.load_state_dict(gat_model.state_dict())
+    gat_trainer, gat_launches = train_phase(
+        "training_gat", gat_model, gat32,
+        {"gather_rows": 1, "gather_mean": 0, "gather_mean_bwd": 0, "gat_fwd": 3, "gat_bwd": 3}, 30)
+    k4["launches"] = gat_launches["gat_fwd"]
+    k5["launches"] = gat_launches["gat_bwd"]
+
+    # ---- 9. serving the GAT model ------------------------------------------
+    with torch.inference_mode():
+        g_logits = gat_model(tuple(reversed(blocks)), gather.gather_rows(features, safe),
+                             contiguous_first=True)
+        with plain_kernels():
+            g_plain = gat_model(tuple(reversed(blocks)), gather.gather_rows_plain(features, safe),
+                                contiguous_first=True)
+    g_err = rel_err(g_logits, g_plain)
+    check(g_logits.shape == (BATCH, meta["num_classes"]) and bool(torch.isfinite(g_logits.float()).all()),
+          "GAT logits shape or values")
+    check(g_err <= LOGITS_BF16_TOL, f"GAT serving logits vs plain path: {g_err}")
+    gat_trainer.eval_step(None, graph, features, labels, *requests[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    g_answers = [gat_trainer.eval_step(None, graph, features, labels, *r) for r in requests]
+    torch.cuda.synchronize()
+    g_serve_s = time.perf_counter() - t0
+    g_launches = read_counts()
+    want = {"gather_rows": N_REQUESTS, "gather_mean": 0, "gather_mean_bwd": 0,
+            "gat_fwd": 3 * N_REQUESTS, "gat_bwd": 0}
+    check(g_launches == want, f"GAT serving launches {g_launches}, expected {want}")
+    check(sum(int(n) for _, n in g_answers) == N_REQUESTS * BATCH, "every seed answered (GAT)")
+    emit({"phase": "serving_gat", "requests": N_REQUESTS, "batch": BATCH,
+          "ms_per_request": g_serve_s / N_REQUESTS * 1e3,
+          "sampled_edges_per_s": req_edges / g_serve_s, "launches": g_launches,
+          "logits_rel_err_vs_plain": g_err,
+          "correct": sum(int(c) for c, _ in g_answers), **card})
+
+    # ---- 10. convergence: 2 epochs, then full-graph validation accuracy ---
+    conv_model = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(6), device=cuda)
+    conv_tr = Trainer(model=conv_model, fan_out=FAN_OUT, dedup_last=False, device=cuda)
+    conv_gen = torch.Generator(device=cuda).manual_seed(11)
+    conv_seeds = SeedGenerator(arrays["train_idx"], BATCH, shuffle=True, drop_last=True, device=cuda)
+    t0 = time.perf_counter()
+    n_conv = 0
+    last = None
+    for ep in range(CONV_EPOCHS):
+        for s, mk in conv_seeds.epoch(torch.Generator(device=cuda).manual_seed(200 + ep)):
+            last = conv_tr.train_step(graph, features, labels, s, mk, conv_gen)
+            n_conv += 1
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv_logits = full_graph_inference(conv_model, None, hg, features, device=cuda)
+    vid = torch.from_numpy(arrays["valid_idx"]).to(cuda).long()
+    val_acc = float((torch.argmax(conv_logits, dim=-1)[vid] == labels[vid]).float().mean())
+    infer_s = time.perf_counter() - t0
+    check(val_acc >= VAL_ACC_MIN, f"val_acc {val_acc} below {VAL_ACC_MIN}")
+    total_s = time.perf_counter() - t_script
+    emit({"phase": "convergence", "epochs": CONV_EPOCHS, "steps": n_conv, "train_s": conv_s,
+          "ms_per_step": conv_s / n_conv * 1e3, "final_loss": float(last["loss"]),
+          "full_graph_inference_s": infer_s, "val_acc": val_acc, "val_acc_min": VAL_ACC_MIN,
+          "script_s_so_far": total_s, "share_of_script": (conv_s + infer_s) / total_s, **card})
+
+    # ---- 11. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k3)]})
+    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k3, k3b, k4, k5)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,9 +12,11 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card they raise, they never fall back
 (:func:`dist_gnn_tpu_torch.utils.device.resolve_device`).
 
-Ported so far: the SAGE serving path — sampler, K1 feature gather, SAGE
-forward with the K3 neighbour mean, ``Trainer.eval_step`` and full-graph
-inference.  Training comes in the next slice.
+Ported so far: the sampler, K1 feature gather, SAGE with the K3
+neighbour mean (forward and backward kernels), GAT with the fused
+attention kernels K4 (forward) and K5 (backward), ``Trainer.train_step``
+(Adam with coupled L2, dropout), ``Trainer.eval_step`` and SAGE
+full-graph inference.
 """
 
 from dist_gnn_tpu_torch.graph import INVALID_ID, Graph, HostGraph  # noqa: F401

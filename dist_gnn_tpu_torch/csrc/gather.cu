@@ -1,4 +1,5 @@
-// K1 (feature-row gather) and K3 (masked neighbour mean) for Hopper, sm_90a.
+// K1 (feature-row gather) and K3 (masked neighbour mean, forward and
+// backward) for Hopper, sm_90a.
 //
 // Plain C interface, loaded with ctypes by dist_gnn_tpu_torch/ops/gather.py
 // (built by dist_gnn_tpu_torch/kernels/build.py).  Each entry point launches
@@ -25,6 +26,18 @@
 //   row and sums it over the k slots in f32 registers, then divides and
 //   writes once in the input dtype.  (The Pallas kernel accumulated in the
 //   table dtype; f32 here, so bf16 results differ from it by rounding.)
+//
+// K3 backward dg_gather_mean_bwd: d_h[slots[s,j]] += d_out[s] / max(cnt_s, 1)
+//   over valid j, into a zeroed f32 [cap, F] buffer.  The Pallas package has
+//   no backward kernel for K3 (its SAGE differentiates the jnp mean through
+//   XLA); this is the port's own.  Bound by bytes: d_out, slots and mask
+//   read once, the distinct rows of d_h written once (the plain version
+//   materialises the [S*k, F] repeated rows, k times the bytes).  Design:
+//   one warp per destination row, each lane scales its elements of d_out[s]
+//   once and adds them into every valid slot's row with f32 atomics, which
+//   take the duplicate slots of a row and of different rows alike.  The
+//   wrapper casts the f32 sum once to h's dtype.  Atomics commit in no fixed
+//   order, so the last bits of an f32 sum vary from run to run.
 //
 // Out-of-range ids are clamped into the table (the callers pre-clip them,
 // as with jnp.take), so a bad id can never read outside the allocation.
@@ -169,6 +182,34 @@ int dispatch_gather_mean(const void* h, const int32_t* slots,
   return (int)cudaGetLastError();
 }
 
+// ---- K3 backward ----------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather_mean_bwd_kernel(const T* __restrict__ d_out,
+                       const int32_t* __restrict__ slots,
+                       const uint8_t* __restrict__ mask,
+                       float* __restrict__ d_h, int64_t cap, int64_t S, int k,
+                       int F) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       s < S; s += n_warps) {
+    const int32_t* srow = slots + s * k;
+    const uint8_t* mrow = mask + s * k;
+    int cnt = 0;
+    for (int j = 0; j < k; ++j) cnt += mrow[j] != 0;
+    if (cnt == 0) continue;
+    const float denom = (float)cnt;
+    for (int f = lane; f < F; f += 32) {
+      const float g = to_float(d_out[s * F + f]) / denom;
+      for (int j = 0; j < k; ++j) {
+        if (mrow[j]) atomicAdd(d_h + clamp_row(srow[j], cap) * F + f, g);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,6 +251,31 @@ int dg_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// K3 backward.  dtype 0 = float32, 1 = bfloat16 (of d_out); d_out is
+// [S, F], slots and mask [S, k], d_h a zeroed f32 [cap, F] buffer.
+int dg_gather_mean_bwd(const void* d_out, const int32_t* slots,
+                       const uint8_t* mask, float* d_h, int64_t cap, int64_t S,
+                       int k, int F, int dtype, void* stream) {
+  if (S == 0) return 0;
+  if (cap <= 0 || k <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)grid_for(S);
+  switch (dtype) {
+    case 0:
+      gather_mean_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
+          static_cast<const float*>(d_out), slots, mask, d_h, cap, S, k, F);
+      break;
+    case 1:
+      gather_mean_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(d_out), slots, mask, d_h, cap, S,
+          k, F);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

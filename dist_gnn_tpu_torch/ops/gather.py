@@ -4,6 +4,9 @@ Counterpart of ``dist_gnn_tpu/ops/gather_pallas.py`` (``gather_rows`` and
 ``gather_mean``).  The kernels are CUDA C++ for sm_90a in
 ``csrc/gather.cu``, whose header notes which Pallas kernel each replaces,
 what bounds it on the card and how its design meets that bound.
+``gather_mean`` is differentiable: a ``torch.autograd.Function`` whose
+backward is a kernel of its own (:func:`gather_mean_bwd`), so the gradient
+reaches the layers below on the card as it does on the CPU.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and only for
 them.  A CUDA tensor launches the kernel, or raises: there is no fallback.
@@ -32,6 +35,8 @@ def _lib() -> ctypes.CDLL:
         lib.dg_gather_rows.restype = i32
         lib.dg_gather_mean.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, p]
         lib.dg_gather_mean.restype = i32
+        lib.dg_gather_mean_bwd.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, p]
+        lib.dg_gather_mean_bwd.restype = i32
         lib._argtypes_set = True
     return lib
 
@@ -103,25 +108,14 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
-def gather_mean(
-    h_src: torch.Tensor,  # [cap, F] float32 or bfloat16
-    slots: torch.Tensor,  # [S, k] int32 positions into h_src
-    mask: torch.Tensor,  # [S, k] bool
-) -> torch.Tensor:
-    """Masked neighbour mean per destination row, [S, F] in h's dtype — K3
-    on the card (plain version: :func:`spmm.gather_mean`).
-
-    Sums in f32 and rounds once, so bf16 results differ from the plain
-    version (which rounds the sum and the quotient in bf16) by rounding:
-    the card check holds bf16 to rtol 1e-2 and f32 to rtol 1e-5."""
-    if h_src.device.type == "cpu":
-        return spmm.gather_mean(h_src, slots, mask)
+def _check_mean_args(x: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor, name: str) -> None:
+    """Raise unless ``x`` (h or d_out) and the [S, k] slot table suit K3."""
     _require(
-        h_src.is_cuda and slots.device == h_src.device and mask.device == h_src.device,
-        "h_src, slots and mask must share one CUDA device",
+        x.is_cuda and slots.device == x.device and mask.device == x.device,
+        f"{name}, slots and mask must share one CUDA device",
     )
-    _require(h_src.dtype in _DTYPE_CODES, f"h_src dtype {h_src.dtype} is not float32 or bfloat16")
-    _require(h_src.dim() == 2 and h_src.is_contiguous(), "h_src must be a contiguous [cap, F] tensor")
+    _require(x.dtype in _DTYPE_CODES, f"{name} dtype {x.dtype} is not float32 or bfloat16")
+    _require(x.dim() == 2 and x.is_contiguous(), f"{name} must be a contiguous 2-D tensor")
     _require(
         slots.dim() == 2 and slots.dtype == torch.int32 and slots.is_contiguous(),
         "slots must be a contiguous [S, k] int32 tensor",
@@ -130,6 +124,13 @@ def gather_mean(
         mask.shape == slots.shape and mask.dtype == torch.bool and mask.is_contiguous(),
         "mask must be a contiguous bool tensor shaped like slots",
     )
+
+
+def _gather_mean_fwd(h_src: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The forward: the plain version for CPU tensors, K3 for CUDA ones."""
+    if h_src.device.type == "cpu":
+        return spmm.gather_mean(h_src, slots, mask)
+    _check_mean_args(h_src, slots, mask, "h_src")
     cap, F = h_src.shape
     S, k = slots.shape
     if S == 0 or F == 0 or k == 0 or cap == 0:
@@ -145,6 +146,87 @@ def gather_mean(
     _check_launch(rc, "gather_mean")
     gather_mean.launches += 1
     return out
+
+
+def gather_mean_bwd_plain(
+    d_out: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor, cap: int
+) -> torch.Tensor:
+    """Plain version of the K3 backward (what :func:`gather_mean_bwd` runs
+    for CPU tensors): ``d_h[slots[s, j]]
+    += d_out[s] / max(cnt_s, 1)`` over valid j, summed in f32 over the
+    materialised [S*k, F] repeated rows, then cast to d_out's dtype."""
+    S, k = slots.shape
+    cnt = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+    scaled = d_out.float() / cnt[:, None]  # [S, F]
+    rows = scaled[:, None, :].expand(S, k, d_out.shape[1])[mask]  # [valid, F]
+    d_h = torch.zeros((cap, d_out.shape[1]), dtype=torch.float32, device=d_out.device)
+    d_h.index_add_(0, slots[mask].long(), rows)
+    return d_h.to(d_out.dtype)
+
+
+def gather_mean_bwd(
+    d_out: torch.Tensor,  # [S, F] float32 or bfloat16
+    slots: torch.Tensor,  # [S, k] int32
+    mask: torch.Tensor,  # [S, k] bool
+    cap: int,
+) -> torch.Tensor:
+    """Gradient of :func:`gather_mean` with respect to h_src, [cap, F] in
+    d_out's dtype — the K3 backward kernel on the card (plain version:
+    :func:`gather_mean_bwd_plain`).
+
+    The kernel adds in f32 with atomics, in no fixed order, and casts once:
+    f32 results agree with the plain version to rounding (the card check
+    holds them to 1e-4 of the largest magnitude), bf16 to 5e-2."""
+    if d_out.device.type == "cpu":
+        return gather_mean_bwd_plain(d_out, slots, mask, cap)
+    _check_mean_args(d_out, slots, mask, "d_out")
+    S, k = slots.shape
+    F = d_out.shape[1]
+    _require(d_out.shape[0] == S, f"d_out has {d_out.shape[0]} rows, slots {S}")
+    d_h = torch.zeros((cap, F), dtype=torch.float32, device=d_out.device)
+    if S == 0 or F == 0 or k == 0 or cap == 0:
+        return d_h.to(d_out.dtype)
+    rc = _lib().dg_gather_mean_bwd(
+        d_out.data_ptr(), slots.data_ptr(), mask.data_ptr(), d_h.data_ptr(),
+        cap, S, k, F, _DTYPE_CODES[d_out.dtype], _stream(d_out),
+    )
+    _check_launch(rc, "gather_mean_bwd")
+    gather_mean_bwd.launches += 1
+    return d_h.to(d_out.dtype)
+
+
+gather_mean_bwd.launches = 0
+
+
+class _GatherMean(torch.autograd.Function):
+    """K3 forward with the K3 backward as its gradient (slots and mask get
+    none)."""
+
+    @staticmethod
+    def forward(ctx, h_src, slots, mask):
+        ctx.save_for_backward(slots, mask)
+        ctx.cap = h_src.shape[0]
+        return _gather_mean_fwd(h_src, slots, mask)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        slots, mask = ctx.saved_tensors
+        return gather_mean_bwd(d_out.contiguous(), slots, mask, ctx.cap), None, None
+
+
+def gather_mean(
+    h_src: torch.Tensor,  # [cap, F] float32 or bfloat16
+    slots: torch.Tensor,  # [S, k] int32 positions into h_src
+    mask: torch.Tensor,  # [S, k] bool
+) -> torch.Tensor:
+    """Masked neighbour mean per destination row, [S, F] in h's dtype — K3
+    on the card (plain version: :func:`spmm.gather_mean`), differentiable
+    in h_src through :func:`gather_mean_bwd`.
+
+    Sums in f32 and rounds once, so bf16 results differ from the plain
+    version (which rounds the sum and the quotient in bf16) by rounding:
+    the card check holds bf16 to rtol 1e-2 and f32 to rtol 1e-5."""
+    return _GatherMean.apply(h_src, slots, mask)
 
 
 gather_mean.launches = 0

@@ -1,10 +1,10 @@
 """Counter-based PRNG: the JAX package's uint32 hashes, bit for bit.
 
-Counterpart of ``dist_gnn_tpu/ops/prng.py``.  Sampling is a pure function
-of per-row uint32 keys, so the port and the JAX package draw the same
-neighbours from the same keys.  The keys themselves come from a
-``torch.Generator`` here (:func:`random_keys`) and from threefry there;
-tests inject JAX's keys to compare the two.
+Counterpart of ``dist_gnn_tpu/ops/prng.py``.  Sampling and dropout are pure
+functions of per-row uint32 keys, so the port and the JAX package draw the
+same neighbours and drop the same activations from the same keys.  The
+keys themselves come from a ``torch.Generator`` here (:func:`random_keys`)
+and from threefry there; tests inject JAX's keys to compare the two.
 
 torch has no full uint32 arithmetic (``>>`` on ``torch.uint32`` is not
 implemented on the CPU), so every value is an int64 tensor holding a
@@ -118,3 +118,17 @@ def bits_to_uniform(bits) -> torch.Tensor:
     """uint32 → float32 uniform in (0, 1): (bits >> 8) * 2**-24, nudged off 0."""
     u = (_u32(bits) >> 8).to(torch.float32) * (2.0**-24)
     return torch.clamp(u, min=2.0**-25)
+
+
+def dropout_keep(row_keys: torch.Tensor, shape: Sequence[int], keep_prob: float) -> torch.Tensor:
+    """Dropout mask [S, H] (True = keep) from one uint32 key per row:
+    ``mix32(row ^ col * 0x9E3779B9)`` per element, kept where its uniform
+    is below ``keep_prob``.  The JAX package draws the [S] row keys with
+    threefry inside ``dropout_keep``; here they are an argument, drawn from
+    a ``torch.Generator`` (:func:`random_keys`) or injected by a test."""
+    S, H = shape
+    if row_keys.shape != (S,):
+        raise ValueError(f"need {S} row keys, got shape {tuple(row_keys.shape)}")
+    col = torch.arange(H, dtype=torch.int64, device=row_keys.device)
+    bits = mix32(_u32(row_keys)[:, None] ^ ((col * _GOLDEN) & _M32))
+    return bits_to_uniform(bits) < keep_prob
