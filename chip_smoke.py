@@ -8,11 +8,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the CUDA kernels from ``dist_gnn_tpu_torch/csrc`` with nvcc,
 then drives the port's serving and training paths at the full width of
 the bench configs: GraphSAGE, 3 layers, in 100, hidden 256, 47 classes,
-and GAT(100, 128, 47, 3 layers, 4 heads), both bf16 compute with f32
-params and dropout 0.5; fanout (15, 10, 5), batch 512, dedup-free last
-hop; Adam lr 1e-3 with coupled weight decay 5e-4; the 500k-node synthetic
-graph with ~30M edges, all in device memory; random weights from a seed.
-Phases, one JSON line each:
+GAT(100, 128, 47, 3 layers, 4 heads) and GCN(100, 256, 47, 3 layers), all
+bf16 compute with f32 params and dropout 0.5; fanout (15, 10, 5), batch
+512, dedup-free last hop; Adam lr 1e-3 with coupled weight decay 5e-4; the
+500k-node synthetic graph with ~30M edges, all in device memory; random
+weights from a seed.  Phases, one JSON line each:
 
 1. device: the card's name, count and power limit;
 2. build: every kernel source compiled, one nvcc each, in parallel;
@@ -24,6 +24,14 @@ Phases, one JSON line each:
    an odd width and an empty input; times of the kernel, the plain
    version and the PyTorch library call, and the least time the card
    could take (bytes over 3.35 TB/s);
+   K2 (``gather_rows_dma``) held equal to its plain version at the
+   main-path shape, the gather bench's shape in bf16 and f32, an odd
+   width, an L that is not a multiple of its rows per step and an empty
+   input, plus the raise for a rows per step whose two stages exceed
+   shared memory; its times beside K1's and ``index_select``'s;
+   bench_gather: the gather bench entry point
+   (``dist_gnn_tpu_torch.scripts.bench_gather2``), K2's path, one line
+   per variant;
 5. serving: ``Trainer.eval_step`` answers 8 batches of 512 validation
    seeds; one batch's logits are held against the plain path on the same
    blocks, and the launch counters show K1 once and K3 three times per
@@ -41,7 +49,16 @@ Phases, one JSON line each:
    K4 3, K5 3), a stage breakdown and the device's busy share;
 9. serving_gat: ``Trainer.eval_step`` with the GAT model, K4 three times
    per request, logits against the plain path;
-10. convergence: a fresh SAGE trained for 2 epochs over the training seeds
+10. training_gcn / serving_gcn: one GCN step's f32 loss and gradients
+    against the same step on the CPU (same blocks and keys), then 8
+    ``train_step`` calls and 8 ``eval_step`` requests, K1 once per step or
+    request and no other kernel;
+11. full_graph_inference_gat / full_graph_inference_gcn: as 6, for the
+    trained GAT and GCN;
+12. full_graph_inference_host: ``full_graph_inference_host`` (features
+    and activations in host memory) for SAGE, GCN and GAT on the 20k-node
+    graph, against the on-card ``full_graph_inference``, timed;
+13. convergence: a fresh SAGE trained for 2 epochs over the training seeds
     (bench.py:399-441), then ``full_graph_inference`` and the validation
     accuracy, which must reach 0.99 (the pinned 1.0 less the margin).
 
@@ -54,6 +71,7 @@ It needs no network and imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import json
 import subprocess
@@ -100,6 +118,18 @@ BWD_BF16_TOL = 5e-2
 LOSS_F32_TOL = 1e-5
 GRAD_F32_TOL = 1e-3
 GRAD_BF16_TOL = 0.2
+# One GCN step in f32 on the card against the same step on the CPU: the
+# same plain PyTorch ops (GCN has no kernel of its own; K1 is exact), so
+# only summation order separates them.
+CPU_F32_TOL = 1e-4
+# The host-resident walk against the on-card walk, per family: SAGE's
+# layers run in bf16 on both, from f32 sums taken in another order, so a
+# logit may move by bf16 rounding (LOGITS_BF16_TOL); GCN's and GAT's walks
+# run in f32 on both (h's dtype follows the f32 features), so only the
+# summation order separates them.
+HOST_TOL = {"sage": LOGITS_BF16_TOL, "gcn": 1e-4, "gat": 1e-4}
+# The gather bench's shapes (scripts/bench_gather2.py:29-31).
+BENCH_N, BENCH_F, BENCH_L = 500_000, 128, 540_672
 
 
 def emit(obj) -> None:
@@ -151,11 +181,13 @@ def main() -> int:
     from dist_gnn_tpu_torch.graph import HostGraph
     from dist_gnn_tpu_torch.kernels import build
     from dist_gnn_tpu_torch.models.gat import GAT
-    from dist_gnn_tpu_torch.models.inference import full_graph_inference
+    from dist_gnn_tpu_torch.models.gcn import GCN
+    from dist_gnn_tpu_torch.models.inference import full_graph_inference, full_graph_inference_host
     from dist_gnn_tpu_torch.models.sage import SAGE, contiguous_mean
     from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, prng, spmm
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
+    from dist_gnn_tpu_torch.scripts import bench_gather2
     from dist_gnn_tpu_torch.training import Trainer, masked_nll_loss
     from dist_gnn_tpu_torch.utils.timing import cuda_time_ms, profile_device
 
@@ -165,6 +197,17 @@ def main() -> int:
         kernels, _ = profile_device(fn)
         hits = [v for k, v in kernels.items() if kernel_name in k]
         return sum(ms for ms, _ in hits) / sum(n for _, n in hits) if hits else None
+
+    counters = {"gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
+                "gather_mean": gather.gather_mean, "gather_mean_bwd": gather.gather_mean_bwd,
+                "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     cuda = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -225,7 +268,7 @@ def main() -> int:
           "block_shapes": [list(b.neigh_slots.shape) for b in blocks],
           "valid_edges": edges, "first_call_s": sample_s})
 
-    # ---- 4. K1 and K3 against their plain versions ------------------------
+    # ---- 4. K1, K2 and K3 against their plain versions --------------------
     safe = torch.where(blocks[-1].frontier_mask, blocks[-1].frontier, 0)
     L = safe.shape[0]
     out = gather.gather_rows(features, safe)
@@ -309,6 +352,66 @@ def main() -> int:
           "times_are": "sums over the three layers of one request", "layers": k3_layers,
           **k3, **card})
 
+    # K2 at the main path's shape (K1's) and the gather bench's, beside K1
+    # and index_select on the same inputs; bound = the distinct rows read
+    # once, the ids, the output written once
+    bgen = torch.Generator(device=cuda).manual_seed(7)
+    bench_bf16 = torch.randn((BENCH_N, BENCH_F), generator=bgen, device=cuda).to(torch.bfloat16)
+    bench_idx = torch.randint(0, BENCH_N, (BENCH_L,), generator=bgen, device=cuda, dtype=torch.int32)
+    k2_shapes = {}
+    for label, table, idx in (("main_path_bf16", features, safe), ("bench_bf16", bench_bf16, bench_idx),
+                              ("bench_f32", bench_bf16.float(), bench_idx)):
+        got = gather.gather_rows_dma(table, idx)
+        check(torch.equal(got, gather.gather_rows_dma_plain(table, idx)), f"K2 differs from table[idx] at {label}")
+        rb = table.shape[1] * table.element_size()
+        uniq = int(torch.unique(idx).numel())
+        nbytes = uniq * rb + idx.shape[0] * 4 + idx.shape[0] * rb
+        k2_shapes[label] = {
+            "N": table.shape[0], "F": table.shape[1], "L": idx.shape[0], "dtype": str(table.dtype),
+            "rows_per_step": 128, "vec_bytes": gather._vec_bytes(rb, table, got), "unique_rows": uniq,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ms": cuda_time_ms(lambda: gather.gather_rows_dma(table, idx)),
+            "device_ms": device_ms(lambda: gather.gather_rows_dma(table, idx), "gather_rows_dma_kernel"),
+            "ms_rows_per_step_32": cuda_time_ms(lambda: gather.gather_rows_dma(table, idx, rows_per_step=32)),
+            "plain_ms": cuda_time_ms(lambda: gather.gather_rows_dma_plain(table, idx)),
+            "library_ms": cuda_time_ms(lambda: torch.index_select(table, 0, idx)),
+            "k1_ms": cuda_time_ms(lambda: gather.gather_rows(table, idx)),
+            "k1_device_ms": device_ms(lambda: gather.gather_rows(table, idx), "gather_rows_kernel"),
+        }
+        del got
+    odd_got = gather.gather_rows_dma(odd, odd_idx)  # F = 37 bf16: 2-byte rows; L = 777, not a multiple of 128
+    check(torch.equal(odd_got, odd[odd_idx.long()]), "K2 odd F and partial last tile")
+    check(gather._vec_bytes(37 * 2, odd, odd_got) == 2, "K2 odd F should take 2-byte copies")
+    before = gather.gather_rows_dma.launches
+    check(gather.gather_rows_dma(features, safe[:0]).shape == (0, 100), "K2 empty idx")
+    too_big = None
+    try:
+        gather.gather_rows_dma(torch.zeros((8, BENCH_F), device=cuda), bench_idx[:8], rows_per_step=512)
+    except ValueError as e:
+        too_big = str(e)
+    check(too_big is not None, "K2 with rows_per_step 512 on 512-byte rows must raise")
+    check(gather.gather_rows_dma.launches == before, "K2 launched for an empty idx or an oversized B")
+    del bench_bf16, bench_idx
+    prim = k2_shapes["bench_bf16"]
+    k2 = {"name": "gather_rows_dma", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
+          "replaces": "dist_gnn_tpu/ops/gather_pallas.py:211", "max_abs_err": 0.0,
+          **{key: prim[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}, "bound_by": "bytes"}
+    emit({"phase": "kernel", "kernel": "K2 gather_rows_dma", "exact": True,
+          "times_are": "the bench_bf16 shape; every shape in 'shapes'", "shapes": k2_shapes,
+          "oversized_rows_per_step_raises": too_big, "smem_optin_bytes": gather.smem_optin_bytes(cuda),
+          "library_is": "torch.index_select", **k2, **card})
+
+    # ---- 4b. the gather bench entry point: K2's path ----------------------
+    gather.gather_rows_dma.launches = 0
+    t0 = time.perf_counter()
+    bench_rows = bench_gather2.main(device=cuda)
+    bench_s = time.perf_counter() - t0
+    k2["launches"] = gather.gather_rows_dma.launches
+    check(k2["launches"] > 0, "the gather bench never launched K2")
+    check(any(not r["launched"] for r in bench_rows), "some rows_per_step should not fit in shared memory")
+    emit({"phase": "bench_gather", "seconds": bench_s, "launches": {"gather_rows_dma": k2["launches"]},
+          "variants": bench_rows, **card})
+
     # ---- 5. serving: Trainer.eval_step ------------------------------------
     trainer = Trainer(model=model, fan_out=FAN_OUT, dedup_last=False, device=cuda)
 
@@ -359,81 +462,85 @@ def main() -> int:
     answered = sum(int(n) for _, n in answers)
     check(answered == N_REQUESTS * BATCH, "every seed answered")
 
-    # where a request's time goes: each stage alone, host clock around a
-    # synchronize; then the device's busy share under the profiler
-    stage_s = {"sample": 0.0, "gather": 0.0, "forward": 0.0}
-    for s, mk, keys in requests:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blks, _ = sample_blocks(graph, s, mk, FAN_OUT, False, keys, dedup_last=False)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        feats = gather.gather_rows(features, torch.where(blks[-1].frontier_mask, blks[-1].frontier, 0))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        with torch.inference_mode():
-            model(tuple(reversed(blks)), feats, contiguous_first=True)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        stage_s["sample"] += t1 - t0
-        stage_s["gather"] += t2 - t1
-        stage_s["forward"] += t3 - t2
-    prof_reqs = 4
-    kernels, prof_wall = profile_device(
-        lambda: trainer.eval_step(None, graph, features, labels, *requests[1]), iters=prof_reqs)
-    busy_ms = sum(ms for ms, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    def request_breakdown(m, tr):
+        """Where a request's time goes: each stage alone (sample, gather,
+        forward), host clock around a synchronize; then the device's busy
+        share and top kernels under the profiler."""
+        stage_s = {"sample": 0.0, "gather": 0.0, "forward": 0.0}
+        for s, mk, keys in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blks, _ = sample_blocks(graph, s, mk, FAN_OUT, False, keys, dedup_last=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            feats = gather.gather_rows(features, torch.where(blks[-1].frontier_mask, blks[-1].frontier, 0))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with torch.inference_mode():
+                m(tuple(reversed(blks)), feats, contiguous_first=True)
+            torch.cuda.synchronize()
+            for key, dt in zip(stage_s, (t1 - t0, t2 - t1, time.perf_counter() - t2)):
+                stage_s[key] += dt
+        prof_reqs = 4
+        kernels, prof_wall = profile_device(
+            lambda: tr.eval_step(None, graph, features, labels, *requests[1]), iters=prof_reqs)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+        return {"stage_ms_per_request": {k: v / N_REQUESTS * 1e3 for k, v in stage_s.items()},
+                "profiled_ms_per_request": prof_wall / prof_reqs,
+                "device_busy_share": sum(ms for ms, _ in kernels.values()) / prof_wall if kernels else None,
+                "device_kernels_per_request": sum(n for _, n in kernels.values()) / prof_reqs,
+                "top_kernels_ms_per_request": [[k[:80], ms / prof_reqs, n / prof_reqs]
+                                               for k, (ms, n) in top]}
+
     emit({"phase": "serving", "requests": N_REQUESTS, "batch": BATCH,
           "ms_per_request": serve_s / N_REQUESTS * 1e3,
           "sampled_edges_per_s": req_edges / serve_s, "sampled_edges": req_edges,
           "logits_rel_err_vs_plain": logits_err, "correct": correct, "answered": answered,
-          "launches": launches,
-          "stage_ms_per_request": {k: v / N_REQUESTS * 1e3 for k, v in stage_s.items()},
-          "profiled_ms_per_request": prof_wall / prof_reqs,
-          "device_busy_share": busy_ms / prof_wall if kernels else None,
-          "device_kernels_per_request": sum(n for _, n in kernels.values()) / prof_reqs,
-          "top_kernels_ms_per_request": [[k[:80], ms / prof_reqs, n / prof_reqs] for k, (ms, n) in top],
-          **card})
+          "launches": launches, **request_breakdown(model, trainer), **card})
     k1["launches"] = launches["gather_rows"]
     k3["launches"] = launches["gather_mean"]
 
     # ---- 6. full-graph inference -----------------------------------------
-    full_graph_inference(model, None, hg, features, device=cuda)  # warm-up
-    torch.cuda.synchronize()
-    gather.gather_rows.launches = 0
-    gather.gather_mean.launches = 0
-    t0 = time.perf_counter()
-    out_full = full_graph_inference(model, None, hg, features, device=cuda)
-    torch.cuda.synchronize()
-    full_s = time.perf_counter() - t0
-    full_launches = {"gather_rows": gather.gather_rows.launches,
-                     "gather_mean": gather.gather_mean.launches}
-    check(out_full.shape == (hg.num_nodes, meta["num_classes"]), "full-graph output shape")
-    check(bool(torch.isfinite(out_full.float()).all()), "full-graph output must be finite")
-    check(full_launches["gather_rows"] > 0, "full-graph inference never launched K1")
-    full_kernels, full_prof_ms = profile_device(
-        lambda: full_graph_inference(model, None, hg, features, device=cuda), iters=1)
-    full_top = sorted(full_kernels.items(), key=lambda kv: -kv[1][0])[:6]
-
     small, _ = make_synthetic_dataset(
         num_nodes=20_000, avg_degree=30, feature_dim=100, num_classes=47, train_frac=0.2, seed=1,
     )
     shg = HostGraph(indptr=small["indptr"], indices=small["indices"])
     sfeat = torch.from_numpy(small["features"]).to(torch.bfloat16)
-    model_cpu = SAGE(100, 256, 47, len(FAN_OUT), compute_dtype=torch.bfloat16, device="cpu")
-    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    got = full_graph_inference(model, None, shg, sfeat, device=cuda)
-    want = full_graph_inference(model_cpu, None, shg, sfeat, device="cpu")
-    small_err = rel_err(got.cpu(), want)
-    check(small_err <= LOGITS_BF16_TOL, f"full-graph CUDA vs CPU at 20k nodes: {small_err}")
-    emit({"phase": "full_graph_inference", "num_nodes": hg.num_nodes, "num_edges": hg.num_edges,
-          "seconds": full_s, "edges_per_s": len(FAN_OUT) * hg.num_edges / full_s,
-          "launches": full_launches, "profiled_s": full_prof_ms / 1e3,
-          "device_busy_share": sum(ms for ms, _ in full_kernels.values()) / full_prof_ms
-          if full_kernels else None,
-          "top_kernels_ms": [[k[:80], ms, n] for k, (ms, n) in full_top],
-          "check_nodes": shg.num_nodes,
-          "check_rel_err_vs_cpu": small_err, **card})
+
+    def full_graph_phase(name, m):
+        """``full_graph_inference`` of ``m`` over the 500k-node graph, timed
+        warm with its launches counted (K1 and nothing else), then held
+        against the same function on the CPU on the 20k-node graph."""
+        full_graph_inference(m, None, hg, features, device=cuda)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out_full = full_graph_inference(m, None, hg, features, device=cuda)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        full_launches = read_counts()
+        check(out_full.shape == (hg.num_nodes, meta["num_classes"]), f"{name}: output shape")
+        check(bool(torch.isfinite(out_full.float()).all()), f"{name}: output must be finite")
+        check(full_launches["gather_rows"] > 0 and sum(full_launches.values()) == full_launches["gather_rows"],
+              f"{name}: launches {full_launches}, expected K1 and no other kernel")
+        del out_full
+        full_kernels, full_prof_ms = profile_device(
+            lambda: full_graph_inference(m, None, hg, features, device=cuda), iters=1)
+        full_top = sorted(full_kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        got = full_graph_inference(m, None, shg, sfeat, device=cuda)
+        want = full_graph_inference(copy.deepcopy(m).to("cpu"), None, shg, sfeat, device="cpu")
+        small_err = rel_err(got.cpu(), want)
+        check(small_err <= LOGITS_BF16_TOL, f"{name}: CUDA vs CPU at 20k nodes: {small_err}")
+        emit({"phase": name, "num_nodes": hg.num_nodes, "num_edges": hg.num_edges,
+              "seconds": full_s, "edges_per_s": len(FAN_OUT) * hg.num_edges / full_s,
+              "launches": full_launches, "profiled_s": full_prof_ms / 1e3,
+              "device_busy_share": sum(ms for ms, _ in full_kernels.values()) / full_prof_ms
+              if full_kernels else None,
+              "top_kernels_ms": [[k[:80], ms, n] for k, (ms, n) in full_top],
+              "check_nodes": shg.num_nodes,
+              "check_rel_err_vs_cpu": small_err, **card})
+
+    full_graph_phase("full_graph_inference", model)
 
     # ---- 7. K3 backward, K4 and K5 against their plain versions ---------
     def call_device_ms(fn, names, iters=10):
@@ -620,17 +727,6 @@ def main() -> int:
           "layers": k5_layers, **k5, **card})
 
     # ---- 8. training: gradients against the plain path, then 8 steps -----
-    counters = {"gather_rows": gather.gather_rows, "gather_mean": gather.gather_mean,
-                "gather_mean_bwd": gather.gather_mean_bwd, "gat_fwd": gat_ops.gat_fwd,
-                "gat_bwd": gat_ops.gat_bwd}
-
-    def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in counters.items()}
-
     @contextlib.contextmanager
     def plain_kernels():
         """Every kernel on the training path swapped for its plain version,
@@ -665,17 +761,11 @@ def main() -> int:
 
     features32 = features.float()
 
-    def train_phase(name, m, m32, per_step, seed):
-        """``m32`` is an f32 copy of ``m`` (compute_dtype None, same params)."""
-        tr = Trainer(model=m, fan_out=FAN_OUT, dedup_last=False, device=cuda)
-        tgen = torch.Generator(device=cuda).manual_seed(seed)
-        s0, mk0 = train_batches[0]
-        blks, _ = sample_blocks(graph, s0, mk0, FAN_OUT, False, tgen, dedup_last=False)
-        labs = torch.where(mk0, labels[torch.where(mk0, s0, 0).long()], 0)
-        drop = [prng.random_keys(tgen, (b.num_dst,), cuda) for b in list(reversed(blks))[:-1]]
-        # one step's loss and gradients, kernels against their plain
-        # versions: in f32, where they must agree to rounding, and in bf16
-        # against the f32 gradients, norm-wise (see GRAD_BF16_TOL)
+    def kernel_grad_check(name, m, m32, blks, labs, mk0, drop):
+        """One step's loss and gradients, kernels against their plain
+        versions: in f32 (``m32``, an f32 copy of ``m``), where they must
+        agree to rounding, and in bf16 against the f32 gradients,
+        norm-wise (see GRAD_BF16_TOL)."""
         res = {}
         for tag, mm, feat_store in (("f32", m32, features32), ("bf16", m, features)):
             feats = gather.gather_rows(feat_store, safe_ids(blks))
@@ -703,6 +793,36 @@ def main() -> int:
                if not (e["f32_kernel_vs_plain"] <= GRAD_F32_TOL
                        and e["bf16_kernel_vs_f32_norm"] <= GRAD_BF16_TOL)}
         check(not bad, f"{name}: gradients off the plain path: {bad}")
+        return {"loss_kernel_and_plain": losses_chk, "grad_share_err": grad_err}
+
+    def cpu_grad_check(name, m32, blks, labs, mk0, drop):
+        """One step's f32 loss and gradients on the card against the same
+        step on the CPU, on the same blocks, features and dropout keys."""
+        feats = gather.gather_rows(features32, safe_ids(blks))
+        loss, grads = loss_and_grads(m32, blks, feats, labs, mk0, drop)
+        m_cpu = copy.deepcopy(m32).to("cpu")
+        blks_cpu = [type(b)(*(x.cpu() for x in b)) for b in blks]
+        loss_cpu, grads_cpu = loss_and_grads(m_cpu, blks_cpu, feats.cpu(), labs.cpu(), mk0.cpu(),
+                                             [d.cpu() for d in drop])
+        loss_err = abs(float(loss) - float(loss_cpu)) / max(abs(float(loss_cpu)), 1.0)
+        grad_err = {n: share_err(grads[n].cpu(), grads_cpu[n]) for n in grads_cpu}
+        check(loss_err <= CPU_F32_TOL, f"{name}: f32 loss {float(loss)} vs CPU {float(loss_cpu)}")
+        bad = {n: e for n, e in grad_err.items() if not e <= CPU_F32_TOL}
+        check(not bad, f"{name}: f32 gradients off the CPU's: {bad}")
+        return {"f32_loss_cuda_and_cpu": [float(loss), float(loss_cpu)], "f32_loss_err_vs_cpu": loss_err,
+                "f32_grad_share_err_vs_cpu": grad_err}
+
+    def train_phase(name, m, per_step, seed, grad_check):
+        """One step's gradients checked by ``grad_check(blocks, labels,
+        seed mask, dropout keys)``, then 8 timed ``train_step`` calls of
+        ``m`` with their launch counts, stage breakdown and busy share."""
+        tr = Trainer(model=m, fan_out=FAN_OUT, dedup_last=False, device=cuda)
+        tgen = torch.Generator(device=cuda).manual_seed(seed)
+        s0, mk0 = train_batches[0]
+        blks, _ = sample_blocks(graph, s0, mk0, FAN_OUT, False, tgen, dedup_last=False)
+        labs = torch.where(mk0, labels[torch.where(mk0, s0, 0).long()], 0)
+        drop = [prng.random_keys(tgen, (b.num_dst,), cuda) for b in list(reversed(blks))[:-1]]
+        checked = grad_check(blks, labs, mk0, drop)
 
         tr.train_step(graph, features, labels, s0, mk0, tgen)  # warm-up
         torch.cuda.synchronize()
@@ -757,8 +877,7 @@ def main() -> int:
         emit({"phase": name, "steps": N_STEPS, "batch": BATCH, "ms_per_step": step_s * 1e3,
               "trained_edges_per_s": edges / step_s, "valid_edges_per_step": edges,
               "losses": losses, "launches": launches,
-              "launches_per_step": {k: v / N_STEPS for k, v in launches.items()},
-              "loss_kernel_and_plain": losses_chk, "grad_share_err": grad_err,
+              "launches_per_step": {k: v / N_STEPS for k, v in launches.items()}, **checked,
               "stage_ms_per_step": {k: v / N_STEPS * 1e3 for k, v in stage.items()},
               "profiled_ms_per_step": prof_wall / prof_steps,
               "device_busy_share": busy / prof_wall if kern else None,
@@ -772,8 +891,10 @@ def main() -> int:
     sage32 = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), device=cuda)
     sage32.load_state_dict(sage_train.state_dict())
     _, sage_launches = train_phase(
-        "training_sage", sage_train, sage32,
-        {"gather_rows": 1, "gather_mean": 3, "gather_mean_bwd": 2, "gat_fwd": 0, "gat_bwd": 0}, 20)
+        "training_sage", sage_train,
+        {"gather_rows": 1, "gather_rows_dma": 0, "gather_mean": 3, "gather_mean_bwd": 2,
+         "gat_fwd": 0, "gat_bwd": 0}, 20,
+        lambda *a: kernel_grad_check("training_sage", sage_train, sage32, *a))
     k3b["launches"] = sage_launches["gather_mean_bwd"]
     gat_model = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4,
                     compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(5),
@@ -781,8 +902,10 @@ def main() -> int:
     gat32 = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4, device=cuda)
     gat32.load_state_dict(gat_model.state_dict())
     gat_trainer, gat_launches = train_phase(
-        "training_gat", gat_model, gat32,
-        {"gather_rows": 1, "gather_mean": 0, "gather_mean_bwd": 0, "gat_fwd": 3, "gat_bwd": 3}, 30)
+        "training_gat", gat_model,
+        {"gather_rows": 1, "gather_rows_dma": 0, "gather_mean": 0, "gather_mean_bwd": 0,
+         "gat_fwd": 3, "gat_bwd": 3}, 30,
+        lambda *a: kernel_grad_check("training_gat", gat_model, gat32, *a))
     k4["launches"] = gat_launches["gat_fwd"]
     k5["launches"] = gat_launches["gat_bwd"]
 
@@ -805,7 +928,7 @@ def main() -> int:
     torch.cuda.synchronize()
     g_serve_s = time.perf_counter() - t0
     g_launches = read_counts()
-    want = {"gather_rows": N_REQUESTS, "gather_mean": 0, "gather_mean_bwd": 0,
+    want = {"gather_rows": N_REQUESTS, "gather_rows_dma": 0, "gather_mean": 0, "gather_mean_bwd": 0,
             "gat_fwd": 3 * N_REQUESTS, "gat_bwd": 0}
     check(g_launches == want, f"GAT serving launches {g_launches}, expected {want}")
     check(sum(int(n) for _, n in g_answers) == N_REQUESTS * BATCH, "every seed answered (GAT)")
@@ -815,7 +938,70 @@ def main() -> int:
           "logits_rel_err_vs_plain": g_err,
           "correct": sum(int(c) for c, _ in g_answers), **card})
 
-    # ---- 10. convergence: 2 epochs, then full-graph validation accuracy ---
+    # ---- 10. GCN: training and serving ------------------------------------
+    k1_only = {"gather_rows": 1, "gather_rows_dma": 0, "gather_mean": 0, "gather_mean_bwd": 0,
+               "gat_fwd": 0, "gat_bwd": 0}
+    gcn_model = GCN(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(8), device=cuda)
+    gcn32 = GCN(100, 256, meta["num_classes"], len(FAN_OUT), device=cuda)
+    gcn32.load_state_dict(gcn_model.state_dict())
+    gcn_trainer, _ = train_phase("training_gcn", gcn_model, k1_only, 40,
+                                 lambda *a: cpu_grad_check("training_gcn", gcn32, *a))
+
+    gcn_cpu = copy.deepcopy(gcn_model).to("cpu")
+    with torch.inference_mode():  # one request's logits, the card against the CPU
+        c_logits = gcn_model(tuple(reversed(blocks)), gather.gather_rows(features, safe),
+                             contiguous_first=True)
+        c_cpu = gcn_cpu(tuple(reversed(blocks_cpu)), features.cpu()[safe.cpu().long()],
+                        contiguous_first=True)
+    c_err = rel_err(c_logits.cpu(), c_cpu)
+    check(c_logits.shape == (BATCH, meta["num_classes"]) and bool(torch.isfinite(c_logits.float()).all()),
+          "GCN logits shape or values")
+    check(c_err <= LOGITS_BF16_TOL, f"GCN serving logits vs the CPU: {c_err}")
+    gcn_trainer.eval_step(None, graph, features, labels, *requests[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    c_answers = [gcn_trainer.eval_step(None, graph, features, labels, *r) for r in requests]
+    torch.cuda.synchronize()
+    c_serve_s = time.perf_counter() - t0
+    c_launches = read_counts()
+    want = {k: v * N_REQUESTS for k, v in k1_only.items()}
+    check(c_launches == want, f"GCN serving launches {c_launches}, expected {want}")
+    check(sum(int(n) for _, n in c_answers) == N_REQUESTS * BATCH, "every seed answered (GCN)")
+    emit({"phase": "serving_gcn", "requests": N_REQUESTS, "batch": BATCH,
+          "ms_per_request": c_serve_s / N_REQUESTS * 1e3,
+          "sampled_edges_per_s": req_edges / c_serve_s, "launches": c_launches,
+          "logits_rel_err_vs_cpu": c_err, "correct": sum(int(c) for c, _ in c_answers),
+          **request_breakdown(gcn_model, gcn_trainer), **card})
+
+    # ---- 11. full-graph inference of GAT and GCN ---------------------------
+    full_graph_phase("full_graph_inference_gat", gat_model)
+    full_graph_phase("full_graph_inference_gcn", gcn_model)
+
+    # ---- 12. host-resident full-graph inference (20k nodes) ----------------
+    host_feats = small["features"]  # f32 numpy, host memory
+    host_rows = {}
+    for tag, m in (("sage", model), ("gcn", gcn_model), ("gat", gat_model)):
+        want_h = full_graph_inference(m, None, shg, torch.from_numpy(host_feats), device=cuda)
+        full_graph_inference_host(m, None, shg, host_feats, device=cuda)  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        got_h = full_graph_inference_host(m, None, shg, host_feats, device=cuda)
+        host_s = time.perf_counter() - t0
+        host_launches = read_counts()
+        err = rel_err(torch.from_numpy(got_h), want_h.cpu())
+        check(got_h.shape == (shg.num_nodes, meta["num_classes"]), f"host {tag}: output shape")
+        check(err <= HOST_TOL[tag], f"host {tag}: vs on-card full_graph_inference: {err} > {HOST_TOL[tag]}")
+        check(sum(host_launches.values()) == 0, f"host {tag}: launched a kernel: {host_launches}")
+        host_rows[tag] = {"seconds": host_s, "edges_per_s": len(FAN_OUT) * shg.num_edges / host_s,
+                          "rel_err_vs_device_path": err}
+    emit({"phase": "full_graph_inference_host", "num_nodes": shg.num_nodes, "num_edges": shg.num_edges,
+          "node_chunk": 4096, "edge_chunk": 1 << 14, "models": host_rows,
+          "note": "the 500k-node graph would move ~70 GB through host gathers; its timing waits "
+                  "for the port's benchmark", **card})
+
+    # ---- 13. convergence: 2 epochs, then full-graph validation accuracy ---
     conv_model = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
                       generator=torch.Generator().manual_seed(6), device=cuda)
     conv_tr = Trainer(model=conv_model, fan_out=FAN_OUT, dedup_last=False, device=cuda)
@@ -842,10 +1028,10 @@ def main() -> int:
           "full_graph_inference_s": infer_s, "val_acc": val_acc, "val_acc_min": VAL_ACC_MIN,
           "script_s_so_far": total_s, "share_of_script": (conv_s + infer_s) / total_s, **card})
 
-    # ---- 11. kernels, card, result ----------------------------------------
+    # ---- 14. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k3, k3b, k4, k5)]})
+    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k3b, k4, k5)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,11 +12,13 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card they raise, they never fall back
 (:func:`dist_gnn_tpu_torch.utils.device.resolve_device`).
 
-Ported so far: the sampler, K1 feature gather, SAGE with the K3
-neighbour mean (forward and backward kernels), GAT with the fused
-attention kernels K4 (forward) and K5 (backward), ``Trainer.train_step``
-(Adam with coupled L2, dropout), ``Trainer.eval_step`` and SAGE
-full-graph inference.
+Ported so far: the sampler, K1 feature gather, K2 (the same gather by
+double-buffered row copies, run by the gather bench
+``scripts/bench_gather2.py``), SAGE with the K3 neighbour mean (forward
+and backward kernels), GAT with the fused attention kernels K4 (forward)
+and K5 (backward), GCN, ``Trainer.train_step`` (Adam with coupled L2,
+dropout), ``Trainer.eval_step``, and full-graph inference of all three
+families, on the device and host-resident.
 """
 
 from dist_gnn_tpu_torch.graph import INVALID_ID, Graph, HostGraph  # noqa: F401

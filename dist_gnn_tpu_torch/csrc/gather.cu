@@ -1,5 +1,6 @@
-// K1 (feature-row gather) and K3 (masked neighbour mean, forward and
-// backward) for Hopper, sm_90a.
+// K1 (feature-row gather), K2 (the same gather through double-buffered
+// row copies) and K3 (masked neighbour mean, forward and backward) for
+// Hopper, sm_90a.
 //
 // Plain C interface, loaded with ctypes by dist_gnn_tpu_torch/ops/gather.py
 // (built by dist_gnn_tpu_torch/kernels/build.py).  Each entry point launches
@@ -38,6 +39,26 @@
 //   take the duplicate slots of a row and of different rows alike.  The
 //   wrapper casts the f32 sum once to h's dtype.  Atomics commit in no fixed
 //   order, so the last bits of an f32 sum vary from run to run.
+//
+// K2 dg_gather_rows_dma: the same out[i] = table[idx[i]] as K1, by
+//   double-buffered row copies through shared memory.  Replaces
+//   gather_pallas.py _gather_rows_dma_call (kernel _gather_dma_kernel),
+//   which started B single-row DMAs into one of two VMEM stages, then the
+//   next step's B, then waited on its own and wrote its [B, F] block.
+//   Bound by bytes as K1 is.  Design: a persistent grid (as many blocks as
+//   fit on the SMs at this shared-memory size) walks output tiles of B
+//   consecutive rows, tile t += gridDim.x.  Two stages of B * row_bytes live
+//   in dynamic shared memory.  For tile t+1 one warp per row issues cp.async
+//   copies (16, 8 or 4-byte granules, the widest that divides the row and
+//   the base pointers) into the free stage and commits them as one group;
+//   cp.async.wait_group 1 then waits for tile t's group only, and the block
+//   drains tile t's stage to out as one contiguous B * row_bytes span with
+//   coalesced vector stores while tile t+1's copies are in flight.  Rows
+//   only 2- or 1-byte aligned take ordinary loads into the stage (cp.async
+//   has no smaller granule).  The TPU's f32-only rule, F % 128 assert, idx
+//   padding to a multiple of B and 131072-id SMEM chunks are gone.  The
+//   wrapper refuses a B whose two stages exceed the block's opt-in shared
+//   memory (dg_smem_optin_bytes) before any launch.
 //
 // Out-of-range ids are clamped into the table (the callers pre-clip them,
 // as with jnp.take), so a bad id can never read outside the allocation.
@@ -109,6 +130,119 @@ void launch_gather_rows(const void* table, const int32_t* idx, void* out,
   gather_rows_kernel<VEC><<<(unsigned)grid_for(L), kThreads, 0, stream>>>(
       static_cast<const V*>(table), idx, static_cast<V*>(out), n_rows, L,
       (int)(row_bytes / VEC));
+}
+
+// ---- K2 -------------------------------------------------------------------
+
+constexpr int kDmaThreads = 256;
+
+// One VEC-byte copy from device memory into shared memory: cp.async for 4, 8
+// and 16-byte granules (16 bypasses L1), an ordinary load and store below.
+template <int VEC>
+__device__ __forceinline__ void copy_to_stage(void* smem_dst, const void* src) {
+  if constexpr (VEC >= 4) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+    if constexpr (VEC == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src),
+                   "n"(VEC));
+    }
+  } else {
+    using V = typename Raw<VEC>::T;
+    *static_cast<V*>(smem_dst) = *static_cast<const V*>(src);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most one committed group (the newest) is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Issue the row copies of tile t (rows [tB, tB + n)) into one stage: one
+// warp per row, lanes across the row's VEC-byte granules.
+template <int VEC>
+__device__ __forceinline__ void issue_tile(unsigned char* stage,
+                                           const unsigned char* __restrict__ table,
+                                           const int32_t* __restrict__ idx,
+                                           int64_t n_rows, int64_t first, int n,
+                                           int64_t row_bytes, int vpr) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < n; j += kDmaThreads / 32) {
+    const int64_t r = clamp_row(idx[first + j], n_rows);
+    const unsigned char* src = table + r * row_bytes;
+    unsigned char* dst = stage + (int64_t)j * row_bytes;
+    for (int v = lane; v < vpr; v += 32) copy_to_stage<VEC>(dst + v * VEC, src + v * VEC);
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kDmaThreads)
+gather_rows_dma_kernel(const unsigned char* __restrict__ table,
+                       const int32_t* __restrict__ idx,
+                       unsigned char* __restrict__ out, int64_t n_rows, int64_t L,
+                       int64_t row_bytes, int B) {
+  using V = typename Raw<VEC>::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stages[2] = {smem, smem + (int64_t)B * row_bytes};
+  const int vpr = (int)(row_bytes / VEC);
+  const int64_t n_tiles = (L + B - 1) / B;
+  int64_t t = blockIdx.x;
+  if (t >= n_tiles) return;
+  auto rows_of = [&](int64_t tile) {
+    const int64_t left = L - tile * B;
+    return (int)(left < B ? left : B);
+  };
+  issue_tile<VEC>(stages[0], table, idx, n_rows, t * B, rows_of(t), row_bytes, vpr);
+  cp_async_commit();
+  int buf = 0;
+  for (; t < n_tiles; t += gridDim.x) {
+    const int64_t next = t + gridDim.x;
+    // the free stage was drained in the previous iteration, before its
+    // closing barrier
+    if (next < n_tiles)
+      issue_tile<VEC>(stages[buf ^ 1], table, idx, n_rows, next * B, rows_of(next),
+                      row_bytes, vpr);
+    cp_async_commit();  // an empty group on the last tile keeps the count
+    cp_async_wait_one();  // tile t's group has landed (this thread's copies)
+    __syncthreads();      // ... and every other thread's
+    const int64_t n_vec = (int64_t)rows_of(t) * vpr;
+    const V* src = reinterpret_cast<const V*>(stages[buf]);
+    V* dst = reinterpret_cast<V*>(out + t * B * row_bytes);
+    for (int64_t v = threadIdx.x; v < n_vec; v += kDmaThreads) dst[v] = src[v];
+    __syncthreads();  // the stage is free for tile t + 2's copies
+    buf ^= 1;
+  }
+}
+
+template <int VEC>
+int launch_gather_rows_dma(const void* table, const int32_t* idx, void* out,
+                           int64_t n_rows, int64_t L, int64_t row_bytes, int B,
+                           cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)B * (size_t)row_bytes;
+  auto kernel = gather_rows_dma_kernel<VEC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDmaThreads, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t n_tiles = (L + B - 1) / B;
+  const int64_t resident = (int64_t)n_sm * per_sm;
+  const unsigned grid = (unsigned)(n_tiles < resident ? n_tiles : resident);
+  kernel<<<grid, kDmaThreads, smem, stream>>>(static_cast<const unsigned char*>(table), idx,
+                                              static_cast<unsigned char*>(out), n_rows, L,
+                                              row_bytes, B);
+  return (int)cudaGetLastError();
 }
 
 // ---- K3 -------------------------------------------------------------------
@@ -232,6 +366,37 @@ int dg_gather_rows(const void* table, const int32_t* idx, void* out,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// K2.  As K1, plus B = rows per stage (two stages of B * row_bytes in
+// shared memory, which the wrapper has checked against
+// dg_smem_optin_bytes).  L may be 0.
+int dg_gather_rows_dma(const void* table, const int32_t* idx, void* out,
+                       int64_t n_rows, int64_t L, int64_t row_bytes, int vec_bytes,
+                       int B, void* stream) {
+  if (L == 0) return 0;
+  if (n_rows <= 0 || row_bytes <= 0 || B <= 0 || row_bytes % vec_bytes != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec_bytes) {
+    case 16: return launch_gather_rows_dma<16>(table, idx, out, n_rows, L, row_bytes, B, s);
+    case 8: return launch_gather_rows_dma<8>(table, idx, out, n_rows, L, row_bytes, B, s);
+    case 4: return launch_gather_rows_dma<4>(table, idx, out, n_rows, L, row_bytes, B, s);
+    case 2: return launch_gather_rows_dma<2>(table, idx, out, n_rows, L, row_bytes, B, s);
+    case 1: return launch_gather_rows_dma<1>(table, idx, out, n_rows, L, row_bytes, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory a block may opt in to on `device`
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232448 bytes on an H100), or
+// -1 if the query fails.
+int64_t dg_smem_optin_bytes(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  return bytes;
 }
 
 // K3.  dtype 0 = float32, 1 = bfloat16.  h is [cap, F], slots and mask

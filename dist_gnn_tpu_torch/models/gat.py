@@ -101,6 +101,34 @@ class GAT(nn.Module):
     def _wants_fused(self, l: int) -> bool:
         return self.use_fused if isinstance(self.use_fused, bool) else l in self.use_fused
 
+    def _project(self, p, h: torch.Tensor, d_out: int):
+        """The project-first prologue of the layer-wise inference paths
+        (gat.py:92-111): ``(z, el, er)`` with z = h @ W flat [N, H*d_out] in
+        h's dtype (summed in the promoted dtype, as ``jnp.dot``), and el, er
+        [N, H] in f32, z against the block-diagonal [H*d_out, 2H] matrix of
+        a_l and a_r in z's dtype."""
+        cd = self.compute_dtype
+        w = p["w"] if cd is None else p["w"].to(cd)
+        ct = torch.promote_types(h.dtype, w.dtype)
+        z = (h.to(ct) @ w.to(ct)).to(h.dtype)
+        H = self.num_heads
+        eye = torch.eye(H, dtype=torch.float32, device=h.device)
+        al = torch.einsum("hd,hg->hdg", p["a_l"].to(z.dtype).float(), eye).reshape(H * d_out, H)
+        ar = torch.einsum("hd,hg->hdg", p["a_r"].to(z.dtype).float(), eye).reshape(H * d_out, H)
+        eler = z.float() @ torch.cat([al, ar], dim=1)  # [N, 2H]
+        return z, eler[:, :H], eler[:, H:]
+
+    def _combine(self, p, out: torch.Tensor, d_out: int, last: bool) -> torch.Tensor:
+        """Head combine + bias (gat.py:113-119): on the last layer the mean
+        over heads plus the heads' mean bias, on hidden layers the flat
+        [N, H*d_out] + bias, then ELU.  ``out`` is [N, H*d_out] or
+        [N, H, d_out]; the dtype follows PyTorch's promotion with the f32
+        bias, as JAX's does."""
+        H = self.num_heads
+        if last:
+            return out.reshape(out.shape[0], H, d_out).mean(dim=1) + p["b"].reshape(H, d_out).mean(0)
+        return F.elu(out.reshape(out.shape[0], H * d_out) + p["b"])
+
     def _fused_layer(self, p, h, block: Block, l: int, contiguous_first: bool) -> torch.Tensor:
         """K4/K5 path (gat.py:175-212): [S, H*d_out] in h's dtype."""
         d_in, d_out, _ = self.dims[l]
@@ -178,16 +206,9 @@ class GAT(nn.Module):
             S_, k_ = block.neigh_mask.shape
             if self._wants_fused(l) and self.fused_ok(S_, k_, d_in, H):
                 out = self._fused_layer(p, h, block, l, contiguous_first)
-                if last:
-                    h = out.reshape(S_, H, d_out).mean(dim=1) + p["b"].reshape(H, d_out).mean(0)
-                else:
-                    h = F.elu(out + p["b"])
             else:
-                outs = self._plain_layer(p, h, block, l, contiguous_first)
-                if last:
-                    h = sum(outs[1:], outs[0]) / H + p["b"].reshape(H, d_out).mean(0)
-                else:
-                    h = F.elu(torch.cat(outs, dim=1) + p["b"])
+                out = torch.cat(self._plain_layer(p, h, block, l, contiguous_first), dim=1)
+            h = self._combine(p, out, d_out, last)
             if not last and keys is not None:
                 h = _dropout(h, keys(h.shape[0], h.device), self.dropout)
             h = h.to(x.dtype)

@@ -1,7 +1,8 @@
-"""K1 (feature-row gather) and K3 (masked neighbour mean): wrappers.
+"""K1 (feature-row gather), K2 (the same gather by double-buffered row
+copies) and K3 (masked neighbour mean): wrappers.
 
-Counterpart of ``dist_gnn_tpu/ops/gather_pallas.py`` (``gather_rows`` and
-``gather_mean``).  The kernels are CUDA C++ for sm_90a in
+Counterpart of ``dist_gnn_tpu/ops/gather_pallas.py`` (``gather_rows``,
+``gather_rows_dma`` and ``gather_mean``).  The kernels are CUDA C++ for sm_90a in
 ``csrc/gather.cu``, whose header notes which Pallas kernel each replaces,
 what bounds it on the card and how its design meets that bound.
 ``gather_mean`` is differentiable: a ``torch.autograd.Function`` whose
@@ -33,6 +34,10 @@ def _lib() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.dg_gather_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
         lib.dg_gather_rows.restype = i32
+        lib.dg_gather_rows_dma.argtypes = [p, p, p, i64, i64, i64, i32, i32, p]
+        lib.dg_gather_rows_dma.restype = i32
+        lib.dg_smem_optin_bytes.argtypes = [i32]
+        lib.dg_smem_optin_bytes.restype = i64
         lib.dg_gather_mean.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, p]
         lib.dg_gather_mean.restype = i32
         lib.dg_gather_mean_bwd.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, p]
@@ -71,8 +76,22 @@ def _check_launch(rc: int, name: str) -> None:
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: ``table[idx]``."""
+    """Plain version of K1 and of K2: ``table[idx]``."""
     return table[idx.long()]
+
+
+def _gather_out(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Check K1's and K2's CUDA arguments and return their empty [L, F]
+    output; a non-empty output needs a non-empty table."""
+    _require(table.is_cuda and idx.device == table.device, "table and idx must share one CUDA device")
+    _require(table.dim() == 2 and table.is_contiguous(), "table must be a contiguous [N, F] tensor")
+    _require(
+        idx.dim() == 1 and idx.dtype == torch.int32 and idx.is_contiguous(),
+        "idx must be a contiguous 1-D int32 tensor",
+    )
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    _require(out.numel() == 0 or table.shape[0] > 0, "cannot gather from an empty table")
+    return out
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -83,18 +102,11 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     An empty idx returns [0, F] without a launch.  Outputs are exact."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
-    _require(table.is_cuda and idx.device == table.device, "table and idx must share one CUDA device")
-    _require(table.dim() == 2 and table.is_contiguous(), "table must be a contiguous [N, F] tensor")
-    _require(
-        idx.dim() == 1 and idx.dtype == torch.int32 and idx.is_contiguous(),
-        "idx must be a contiguous 1-D int32 tensor",
-    )
+    out = _gather_out(table, idx)
+    if out.numel() == 0:
+        return out
     N, F = table.shape
     L = idx.shape[0]
-    out = torch.empty((L, F), dtype=table.dtype, device=table.device)
-    if L == 0 or F == 0:
-        return out
-    _require(N > 0, "cannot gather from an empty table")
     row_bytes = F * table.element_size()
     rc = _lib().dg_gather_rows(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, L, row_bytes,
@@ -106,6 +118,64 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_rows.launches = 0
+
+
+gather_rows_dma_plain = gather_rows_plain  # K2 computes K1's function
+
+
+def dma_stage_bytes(row_bytes: int, rows_per_step: int) -> int:
+    """Shared memory K2 needs per block: two stages of ``rows_per_step``
+    rows."""
+    return 2 * rows_per_step * row_bytes
+
+
+def smem_optin_bytes(device: torch.device) -> int:
+    """The dynamic shared memory a block may opt in to on a CUDA device
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``; 232448 bytes on an
+    H100)."""
+    _require(device.type == "cuda", f"{device} has no CUDA shared memory")
+    index = torch.cuda.current_device() if device.index is None else device.index
+    limit = _lib().dg_smem_optin_bytes(index)
+    if limit < 0:
+        raise RuntimeError(f"could not read the shared-memory limit of {device}")
+    return limit
+
+
+def gather_rows_dma(table: torch.Tensor, idx: torch.Tensor, rows_per_step: int = 128) -> torch.Tensor:
+    """``table[idx]`` — K2 on the card: K1's result through double-buffered
+    row copies, ``rows_per_step`` rows per stage and two stages in flight
+    per block.
+
+    K1's contract: table [N, F] of any F and dtype, idx [L] int32 in
+    [0, N) (the kernel clamps), an empty idx gives [0, F] without a launch,
+    outputs are exact.  Raises ``ValueError`` before any launch when
+    ``rows_per_step`` < 1, or when the two stages
+    (:func:`dma_stage_bytes`) exceed :func:`smem_optin_bytes`."""
+    _require(rows_per_step >= 1, f"rows_per_step must be at least 1, got {rows_per_step}")
+    if table.device.type == "cpu":
+        return gather_rows_dma_plain(table, idx)
+    out = _gather_out(table, idx)
+    if out.numel() == 0:
+        return out
+    N, F = table.shape
+    L = idx.shape[0]
+    row_bytes = F * table.element_size()
+    need, limit = dma_stage_bytes(row_bytes, rows_per_step), smem_optin_bytes(table.device)
+    _require(
+        need <= limit,
+        f"rows_per_step={rows_per_step}: two stages of {rows_per_step} x {row_bytes} B rows "
+        f"need {need} B of shared memory, above the {limit} B a block may opt in to",
+    )
+    rc = _lib().dg_gather_rows_dma(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, L, row_bytes,
+        _vec_bytes(row_bytes, table, out), rows_per_step, _stream(table),
+    )
+    _check_launch(rc, "gather_rows_dma")
+    gather_rows_dma.launches += 1
+    return out
+
+
+gather_rows_dma.launches = 0
 
 
 def _check_mean_args(x: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor, name: str) -> None:

@@ -2,8 +2,8 @@
 
 Counterpart of ``dist_gnn_tpu/training/trainer.py``.  ``train_step`` runs
 one mini-batch: sample all layers, gather the deepest frontier's features
-through K1, forward in train mode (SAGE through K3, GAT through K4), the
-masked NLL loss, ``backward()`` (K3's and K5's kernels on the card) and an
+through K1, forward in train mode (SAGE through K3, GAT through K4, GCN
+in plain PyTorch), the masked NLL loss, ``backward()`` (K3's and K5's kernels on the card) and an
 Adam step.  ``eval_step`` answers a batch of seed-node queries.
 
 The JAX trainer is one jitted function over an explicit ``TrainState``; the

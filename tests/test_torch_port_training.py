@@ -23,6 +23,7 @@ from dist_gnn_tpu import graph as jgraph
 from dist_gnn_tpu import sampler as jsampler
 from dist_gnn_tpu.dataloading import preprocess as jpre
 from dist_gnn_tpu.models.gat import GAT as JGAT
+from dist_gnn_tpu.models.gcn import GCN as JGCN
 from dist_gnn_tpu.models.sage import SAGE as JSAGE
 from dist_gnn_tpu.ops import prng as jprng
 from dist_gnn_tpu.ops import spmm as jspmm
@@ -30,12 +31,13 @@ from dist_gnn_tpu.training import Trainer as JTrainer
 from dist_gnn_tpu.training.trainer import make_optimizer as jmake_optimizer
 from dist_gnn_tpu_torch import graph as tgraph
 from dist_gnn_tpu_torch.models import GAT as TGAT
+from dist_gnn_tpu_torch.models import GCN as TGCN
 from dist_gnn_tpu_torch.models import SAGE as TSAGE
 from dist_gnn_tpu_torch.ops import gather as tgather
 from dist_gnn_tpu_torch.ops import spmm as tspmm
 from dist_gnn_tpu_torch.training import Trainer as TTrainer
 from dist_gnn_tpu_torch.training import make_optimizer
-from dist_gnn_tpu_torch.weights import gat_params_from_jax, sage_params_from_jax
+from dist_gnn_tpu_torch.weights import gat_params_from_jax, gcn_params_from_jax, sage_params_from_jax
 
 torch.set_num_threads(1)
 INVALID = int(jgraph.INVALID_ID)
@@ -126,6 +128,10 @@ def _models(kind, meta):
         jm = JSAGE(12, 16, meta["num_classes"], 3)
         tm = TSAGE(12, 16, meta["num_classes"], 3, device="cpu")
         conv = sage_params_from_jax
+    elif kind == "gcn":
+        jm = JGCN(12, 16, meta["num_classes"], 3)
+        tm = TGCN(12, 16, meta["num_classes"], 3, device="cpu")
+        conv = gcn_params_from_jax
     else:  # JAX on its masked-softmax path, the port on the fused op
         jm = JGAT(12, 8, meta["num_classes"], 3, num_heads=2, use_fused=False)
         tm = TGAT(12, 8, meta["num_classes"], 3, num_heads=2, device="cpu")
@@ -151,7 +157,7 @@ def _step_keys(key, step, jblocks, n_hops):
     return k_sample, k_drop, hop, drop
 
 
-@pytest.mark.parametrize("kind,dedup_last", [("sage", False), ("gat", True)])
+@pytest.mark.parametrize("kind,dedup_last", [("sage", False), ("gat", True), ("gcn", False)])
 def test_train_step_matches_jax(data, kind, dedup_last):
     arrays, meta, jhg, thg = data
     fan_out = (4, 3, 2)
