@@ -41,7 +41,14 @@ weights from a seed.  Phases, one JSON line each:
    graph;
 7. kernels: the K3 backward at SAGE layers 1 and 2, and K4 and K5 at the
    three GAT layers, held against their plain versions on the card in
-   bf16, plus f32, an odd head width and all-masked rows; times as in 4;
+   bf16, plus f32 and all-masked rows; times as in 4.
+   Before K4/K5: each GAT layer's launch plan (rows, head split, shared
+   memory, blocks per SM, waves) and the HMMA (tensor-core) instructions
+   of every ``gat`` kernel in ``cuobjdump -sass`` of the built library
+   (bf16 kernels must have some, the exact-f32 ones none); after them,
+   both kernels in bf16 and f32 at edge shapes (S not a multiple of the
+   row tile, E 37 and 1024, D 7 and 47, H 1 and 8, K 1 and 32, all-masked
+   rows);
 8. training_sage / training_gat: the loss and every parameter's gradient
    on one step's blocks against the same step with every kernel swapped
    for its plain version, in f32 and in bf16, then 8 ``Trainer.train_step`` calls timed, with
@@ -164,6 +171,76 @@ def share_err(out, ref) -> float:
     scale = float(ref.float().abs().max()) if ref.numel() else 0.0
     err = max_abs(out, ref)
     return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def hmma_counts(lib_path) -> dict:
+    """HMMA (tensor-core mma) instructions per ``gat`` kernel in the SASS of
+    the built library, by ``cuobjdump -sass``."""
+    sass = subprocess.run(["cuobjdump", "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = next((k for k in ("gat_fwd_bf16", "gat_fwd_f32", "gat_bwd_bf16", "gat_bwd_f32",
+                                    "gat_dw_bf16", "gat_dw_f32") if k in name), None)
+            if cur is not None:
+                cur += "_kernel" + ("<H=%s>" % name.split("ILi")[1][0] if "ILi" in name else "")
+                counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    check(len(counts) >= 6, f"cuobjdump found {sorted(counts)}, expected every gat kernel")
+    return counts
+
+
+# K4/K5 edge shapes (K, S, E, H, D): S not a multiple of any row tile, E 37
+# (odd, 2-byte rows) and 1024 (the envelope's edge), D 7 and 47 (heads that
+# start off every vector boundary), H 1, 3 and 8, K 1 and 32.
+GAT_EDGE_SHAPES = [(3, 1000, 37, 1, 7), (32, 333, 1024, 8, 47), (1, 77, 100, 8, 128),
+                   (7, 129, 64, 3, 16), (5, 300, 37, 3, 7)]
+
+
+def gat_edge_checks(gat_ops, gen) -> list:
+    """K4 and K5 against their plain versions at GAT_EDGE_SHAPES in bf16
+    and f32, need_dx True and False, with the first 3 rows all masked
+    (their outputs and gradients must be exactly 0)."""
+    import torch
+
+    cuda = torch.device("cuda")
+    rows = []
+    for K, S, E, H, D in GAT_EDGE_SHAPES:
+        for dt, tol4, tol5 in ((torch.bfloat16, K4_BF16_TOL, BWD_BF16_TOL), (torch.float32, K4_F32_TOL, BWD_F32_TOL)):
+            x_n = torch.randn(K, S, E, device=cuda, generator=gen).to(dt)
+            x_dst = torch.randn(S, E, device=cuda, generator=gen).to(dt)
+            wal, war = ((torch.randn(E, H, device=cuda, generator=gen) * 0.1).to(dt) for _ in range(2))
+            w = (torch.randn(E, H * D, device=cuda, generator=gen) * 0.1).to(dt)
+            el = x_dst.float() @ wal.float()
+            er3 = (x_n.reshape(K * S, E).float() @ war.float()).reshape(K, S, H)
+            mask_f = (torch.rand(S, K, device=cuda, generator=gen) < 0.8).float()
+            mask_f[:3] = 0
+            g = torch.randn(S, H * D, device=cuda, generator=gen).to(dt)
+            where = f"K={K} S={S} E={E} H={H} D={D} {dt}"
+            out = gat_ops.gat_fwd(x_n, el, er3, mask_f, w, 0.2)
+            e4 = share_err(out, gat_ops.gat_fwd_plain(x_n, el, er3, mask_f, w, 0.2))
+            check(e4 <= tol4, f"K4 edge {where}: error {e4} > {tol4}")
+            check(bool((out[:3] == 0).all()), f"K4 edge {where}: all-masked rows must be 0")
+            e5 = {}
+            for need_dx in (True, False):
+                got = gat_ops.gat_bwd(x_n, el, er3, mask_f, w, g, 0.2, need_dx)
+                want = gat_ops.gat_bwd_plain(x_n, el, er3, mask_f, w, g, 0.2, need_dx)
+                for name, a, b in zip(("dw", "d_el", "d_er3", "dxn"), got, want):
+                    if b is None:
+                        check(a is None, f"K5 edge {where}: dxn without need_dx")
+                        continue
+                    e5[name] = max(e5.get(name, 0.0), share_err(a, b))
+                    check(e5[name] <= tol5, f"K5 edge {where} {name}: error {e5[name]} > {tol5}")
+                check(bool((got[1][:3] == 0).all() and (got[2][:, :3] == 0).all()),
+                      f"K5 edge {where}: all-masked rows must have 0 score gradients")
+                if need_dx:
+                    check(bool((got[3][:, :3] == 0).all()), f"K5 edge {where}: all-masked rows' dxn must be 0")
+            torch.cuda.synchronize()
+            rows.append({"K": K, "S": S, "E": E, "H": H, "D": D, "dtype": str(dt), "err_k4": e4, "err_k5": e5})
+    return rows
 
 
 def main() -> int:
@@ -613,6 +690,24 @@ def main() -> int:
     # deeper layers a k-major gather of a random hidden [num_src, 512]
     H = 4
     gat_dims = [(100, 128), (512, 128), (512, meta["num_classes"])]
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gat_plans = []
+    for l, blk in enumerate(sage_blocks):
+        S, kk = blk.neigh_slots.shape
+        E, D = gat_dims[l]
+        for kern in ("fwd", "bwd"):
+            p = gat_ops.gat_plan(kern, kk, S, E, H, D, torch.bfloat16, num_sms)
+            gat_plans.append({"layer": l, "kernel": "K4" if kern == "fwd" else "K5", "S": S, "K": kk,
+                              "E": E, "D": D, "rows": p.rows,
+                              "heads_per_block": p.heads_per_block, "grid": list(p.grid),
+                              "smem_bytes": p.smem_bytes, "blocks_per_sm": p.blocks_per_sm,
+                              "waves": p.waves, "w_rows": p.w_rows, "dw_splits": p.dw_splits})
+    hmma = hmma_counts(build._lib_path("gat"))
+    for name, n in hmma.items():
+        want_tc = "bf16" in name
+        check((n > 0) == want_tc, f"{name}: {n} HMMA instructions, expected {'some' if want_tc else 'none'}")
+    emit({"phase": "gat_plan", "num_sms": num_sms, "layers": gat_plans,
+          "hmma_per_kernel": hmma, "hmma_from": "cuobjdump -sass of the built libgat", **card})
     k4_layers, k5_layers = [], []
     k4_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     k5_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
@@ -685,33 +780,20 @@ def main() -> int:
                 "ms": cuda_time_ms(lambda: gat_ops.gat_fwd(*fwd_args)),
                 "plain_ms": cuda_time_ms(lambda: gat_ops.gat_fwd_plain(*fwd_args), iters=5),
                 "bound_ms": bound4,
-                "device_ms": call_device_ms(lambda: gat_ops.gat_fwd(*fwd_args), ["gat_fwd_kernel"])}
+                "device_ms": call_device_ms(lambda: gat_ops.gat_fwd(*fwd_args), ["gat_fwd_"])}
         lay5 = {**shape, "need_dx": need_dx, "bytes": b5, "flops": f5, "err_bf16": err5,
                 "ms": cuda_time_ms(lambda: gat_ops.gat_bwd(*bwd_args)),
                 "plain_ms": cuda_time_ms(lambda: gat_ops.gat_bwd_plain(*bwd_args), iters=5),
                 "bound_ms": bound5,
-                "device_ms": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args),
-                                            ["gat_bwd_rows_kernel", "gat_dw_kernel"]),
-                "device_ms_rows_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args),
-                                                        ["gat_bwd_rows_kernel"]),
-                "device_ms_dw_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args),
-                                                      ["gat_dw_kernel"])}
+                "device_ms": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args), ["gat_bwd_", "gat_dw_"]),
+                "device_ms_rows_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args), ["gat_bwd_"]),
+                "device_ms_dw_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args), ["gat_dw_"])}
         for acc, lay in ((k4_sum, lay4), (k5_sum, lay5)):
             for key in acc:
                 acc[key] += lay[key]
         k4_layers.append(lay4)
         k5_layers.append(lay5)
-    tiny = [torch.randn(*sh, device=cuda, generator=kgen) for sh in
-            ((5, 300, 37), (300, 3), (5, 300, 3), (300, 21), (300, 21))]
-    t_mask = (torch.rand(300, 5, device=cuda, generator=kgen) < 0.7).float()
-    t_mask[:4] = 0
-    t_args = (tiny[0], tiny[1], tiny[2], t_mask, tiny[3][:37].contiguous() * 0.1)
-    t_out = gat_ops.gat_fwd(*t_args, 0.2)
-    check(share_err(t_out, gat_ops.gat_fwd_plain(*t_args, 0.2)) <= K4_F32_TOL, "K4 f32 odd D=7")
-    check(bool((t_out[:4] == 0).all()), "K4 f32 all-masked rows must be 0")
-    for a, b in zip(gat_ops.gat_bwd(*t_args, tiny[4], 0.2, True),
-                    gat_ops.gat_bwd_plain(*t_args, tiny[4], 0.2, True)):
-        check(share_err(a, b) <= BWD_F32_TOL, "K5 f32 odd D=7")
+    gat_edges = gat_edge_checks(gat_ops, kgen)
     no_library = "none: no one PyTorch call computes the fused softmax-aggregate-project"
     k4 = {"name": "gat_fwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gat.cu",
           "replaces": "dist_gnn_tpu/ops/gat_pallas.py:206", "max_abs_err": k4_err, **k4_sum,
@@ -721,7 +803,7 @@ def main() -> int:
           "bound_by": "operations" if k5_flop_bound else "bytes", "library_ms": None}
     emit({"phase": "kernel", "kernel": "K4 gat_fwd", "dtype": "bfloat16", "library": no_library,
           "times_are": "sums over the three GAT layers of one step", "layers": k4_layers,
-          **k4, **card})
+          "edge_shapes": gat_edges, **k4, **card})
     emit({"phase": "kernel", "kernel": "K5 gat_bwd", "dtype": "bfloat16", "library": no_library,
           "times_are": "sums over the three GAT layers of one step (need_dx on layers 1, 2)",
           "layers": k5_layers, **k5, **card})
