@@ -21,9 +21,10 @@ weights from a seed.  Phases, one JSON line each:
    emulation of the uint32 PRNG on the card);
 4. kernels: K1 (``gather_rows``) and K3 (``gather_mean``) held against
    their plain versions on the card at the main path's shapes, plus f32,
-   an odd width and an empty input; times of the kernel, the plain
-   version and the PyTorch library call, and the least time the card
-   could take (bytes over 3.35 TB/s);
+   an odd width, all-masked rows and an empty input; times of the kernel
+   (CUDA events, the device time of every op a call launches, host µs per
+   call), the plain version and the PyTorch library call, and the least
+   time the card could take (bytes over 3.35 TB/s);
    K2 (``gather_rows_dma``) held equal to its plain version at the
    main-path shape, the gather bench's shape in bf16 and f32, an odd
    width, an L that is not a multiple of its rows per step and an empty
@@ -39,9 +40,10 @@ weights from a seed.  Phases, one JSON line each:
 6. full-graph inference: ``full_graph_inference`` over all 500k nodes,
    timed, and held against the same function on the CPU on a 20k-node
    graph;
-7. kernels: the K3 backward at SAGE layers 1 and 2, and K4 and K5 at the
-   three GAT layers, held against their plain versions on the card in
-   bf16, plus f32 and all-masked rows; times as in 4.
+7. kernels: the slot transpose and the K3 backward at SAGE layers 1 and
+   2 (f32 bitwise equal over two calls), and K4 and K5 at the three GAT
+   layers, held against their plain versions on the card in bf16, plus
+   f32, an odd width and all-masked rows; times as in 4.
    Before K4/K5: each GAT layer's launch plan (rows, head split, shared
    memory, blocks per SM, waves) and the HMMA (tensor-core) instructions
    of every ``gat`` kernel in ``cuobjdump -sass`` of the built library
@@ -52,8 +54,8 @@ weights from a seed.  Phases, one JSON line each:
 8. training_sage / training_gat: the loss and every parameter's gradient
    on one step's blocks against the same step with every kernel swapped
    for its plain version, in f32 and in bf16, then 8 ``Trainer.train_step`` calls timed, with
-   the launch counters per step (SAGE: K1 1, K3 3, K3-bwd 2; GAT: K1 1,
-   K4 3, K5 3), a stage breakdown and the device's busy share;
+   the launch counters per step (SAGE: K1 1, K3 3, the slot transpose 2,
+   K3-bwd 2; GAT: K1 1, K4 3, K5 3), a stage breakdown and the device's busy share;
 9. serving_gat: ``Trainer.eval_step`` with the GAT model, K4 three times
    per request, logits against the plain path;
 10. training_gcn / serving_gcn: one GCN step's f32 loss and gradients
@@ -106,11 +108,12 @@ LOGITS_BF16_TOL = 5e-2
 K4_BF16_TOL = 1e-2
 # f32: the same arithmetic summed in another order.
 K4_F32_TOL = 1e-5
-# The K3 backward and K5 in f32: sums in another order, and the atomic adds
-# (K3-bwd's rows, K5's dW across blocks) in an order that changes per run.
+# The K3 backward and K5 in f32: sums in another order than the plain
+# version's (whose index_add_ on the card adds atomically), and K5's dW
+# atomics across blocks in an order that changes per run.
 BWD_F32_TOL = 1e-4
 # ... and on bf16 inputs: K5 rounds agg to bf16 before dW and writes dxn in
-# bf16, the K3 backward casts its f32 sum to bf16, each from sums in
+# bf16, the K3 backward rounds its f32 sum to bf16, each from sums in
 # another order than the plain version's.
 BWD_BF16_TOL = 5e-2
 # One training step's loss and gradients, kernels against the plain path.
@@ -260,11 +263,12 @@ def main() -> int:
     from dist_gnn_tpu_torch.models.gat import GAT
     from dist_gnn_tpu_torch.models.gcn import GCN
     from dist_gnn_tpu_torch.models.inference import full_graph_inference, full_graph_inference_host
+    from dist_gnn_tpu_torch.models import sage as sage_mod
     from dist_gnn_tpu_torch.models.sage import SAGE, contiguous_mean
     from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, prng, spmm
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
-    from dist_gnn_tpu_torch.scripts import bench_gather2
+    from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean
     from dist_gnn_tpu_torch.training import Trainer, masked_nll_loss
     from dist_gnn_tpu_torch.utils.timing import cuda_time_ms, profile_device
 
@@ -276,7 +280,7 @@ def main() -> int:
         return sum(ms for ms, _ in hits) / sum(n for _, n in hits) if hits else None
 
     counters = {"gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
-                "gather_mean": gather.gather_mean, "gather_mean_bwd": gather.gather_mean_bwd,
+                "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose, "gather_mean_bwd": gather.gather_mean_bwd,
                 "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
 
     def reset_counts():
@@ -377,16 +381,18 @@ def main() -> int:
     # K3 at the three layers of one request: layer l aggregates over the
     # block that reversed(blocks)[l] names, from an h of that block's
     # frontier size (layer 0: the gathered features; deeper: hidden 256).
-    hgen = torch.Generator(device=cuda).manual_seed(2)
+    # bench_gather_mean gives these inputs (and each backward's d_out) and
+    # times each call: event ms, device ms of every op the call launches,
+    # host µs per call; at layers 1 and 2 also K3's training form and both
+    # backwards as a step runs them.
+    k3_inputs = bench_gather_mean.layer_inputs(blocks, out)
+    k3_timed = bench_gather_mean.measure(k3_inputs)
     k3_layers = []
-    k3_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    sum_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "host_us_per_call")
+    k3_sum = dict.fromkeys(sum_keys, 0.0)
     k3_err = 0.0
-    for l, blk in enumerate(reversed(blocks)):
-        S, kk = blk.neigh_slots.shape
-        width = 100 if l == 0 else 256
-        h = out if l == 0 else torch.randn(blk.num_src, width, device=cuda,
-                                           generator=hgen).to(torch.bfloat16)
-        slots, m = blk.neigh_slots, blk.neigh_mask
+    for x, timed in zip(k3_inputs, k3_timed["k3"]):
+        l, h, slots, m = x["layer"], x["h"], x["slots"], x["mask"]
         got = gather.gather_mean(h, slots, m)
         want = spmm.gather_mean(h, slots, m)
         err = rel_err(got, want)
@@ -394,24 +400,18 @@ def main() -> int:
         err32 = rel_err(gather.gather_mean(h.float(), slots, m), spmm.gather_mean(h.float(), slots, m))
         check(err32 <= K3_F32_TOL, f"K3 f32 layer {l}: error {err32} > {K3_F32_TOL}")
         k3_err = max(k3_err, max_abs(got, want))
-        rows = int(torch.unique(slots[m]).numel())
-        nbytes = rows * width * 2 + S * kk * 5 + S * width * 2
-        table = torch.cat([h, torch.zeros(1, width, device=cuda, dtype=h.dtype)])
+        table = torch.cat([h, torch.zeros(1, h.shape[1], device=cuda, dtype=h.dtype)])
         bag = torch.where(m, slots, h.shape[0]).long()
         lay = {
-            "layer": l, "S": S, "k": kk, "F": width, "cap": h.shape[0], "valid_slots": int(m.sum()),
-            "distinct_rows": rows, "bytes": nbytes, "rel_err_bf16": err, "rel_err_f32": err32,
-            "ms": cuda_time_ms(lambda: gather.gather_mean(h, slots, m)),
+            **timed, "rel_err_bf16": err, "rel_err_f32": err32,
             "plain_ms": cuda_time_ms(lambda: spmm.gather_mean(h, slots, m)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "device_ms": device_ms(lambda: gather.gather_mean(h, slots, m), "gather_mean_kernel"),
             "library_ms": cuda_time_ms(lambda: F.embedding_bag(
                 bag, table, mode="mean", padding_idx=h.shape[0])),
         }
         lay["library_max_abs_err"] = max_abs(
             F.embedding_bag(bag, table, mode="mean", padding_idx=h.shape[0]), got)
         for key in k3_sum:
-            k3_sum[key] += lay[key]
+            k3_sum[key] += lay[key] or 0.0
         k3_layers.append(lay)
     odd_h = torch.randn(300, 37, device=cuda, dtype=torch.bfloat16)
     odd_s = torch.randint(0, 300, (50, 7), device=cuda, dtype=torch.int32)
@@ -526,15 +526,14 @@ def main() -> int:
     for s, mk, keys in requests:
         blks, _ = sample_blocks(graph, s, mk, FAN_OUT, False, keys, dedup_last=False)
         req_edges += sum(int(b.neigh_mask.sum()) for b in blks)
-    gather.gather_rows.launches = 0
-    gather.gather_mean.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     answers = [trainer.eval_step(None, graph, features, labels, *r) for r in requests]
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {"gather_rows": gather.gather_rows.launches, "gather_mean": gather.gather_mean.launches}
-    check(launches == {"gather_rows": N_REQUESTS, "gather_mean": 3 * N_REQUESTS},
-          f"serving launches {launches}, expected 1 K1 and 3 K3 per request")
+    launches = read_counts()
+    want = {**dict.fromkeys(counters, 0), "gather_rows": N_REQUESTS, "gather_mean": 3 * N_REQUESTS}
+    check(launches == want, f"serving launches {launches}, expected 1 K1 and 3 K3 per request")
     correct = sum(int(c) for c, _ in answers)
     answered = sum(int(n) for _, n in answers)
     check(answered == N_REQUESTS * BATCH, "every seed answered")
@@ -575,7 +574,6 @@ def main() -> int:
           "logits_rel_err_vs_plain": logits_err, "correct": correct, "answered": answered,
           "launches": launches, **request_breakdown(model, trainer), **card})
     k1["launches"] = launches["gather_rows"]
-    k3["launches"] = launches["gather_mean"]
 
     # ---- 6. full-graph inference -----------------------------------------
     small, _ = make_synthetic_dataset(
@@ -630,60 +628,132 @@ def main() -> int:
     kgen = torch.Generator(device=cuda).manual_seed(3)
     sage_blocks = list(reversed(blocks))  # input-first, as the model sees them
 
-    # K3 backward where a SAGE step runs it: layers 1 and 2 (layer 0's
-    # input, the gathered features, needs no gradient)
-    k3b_layers, k3b_err = [], 0.0
-    k3b_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for l in (1, 2):
-        blk = sage_blocks[l]
-        S, kk = blk.neigh_slots.shape
-        cap, width = blk.num_src, 256
-        d_out = torch.randn(S, width, device=cuda, generator=kgen).to(torch.bfloat16)
-        slots, m = blk.neigh_slots, blk.neigh_mask
-        got = gather.gather_mean_bwd(d_out, slots, m, cap)
-        want = gather.gather_mean_bwd_plain(d_out, slots, m, cap)
-        err = share_err(got, want)
-        check(err <= BWD_BF16_TOL, f"K3-bwd bf16 layer {l}: error {err} > {BWD_BF16_TOL}")
-        err32 = share_err(gather.gather_mean_bwd(d_out.float(), slots, m, cap),
-                          gather.gather_mean_bwd_plain(d_out.float(), slots, m, cap))
-        check(err32 <= BWD_F32_TOL, f"K3-bwd f32 layer {l}: error {err32} > {BWD_F32_TOL}")
-        k3b_err = max(k3b_err, max_abs(got, want))
-        # d_out, slots and mask read once, the [cap, F] gradient written once
-        nbytes = S * width * 2 + S * kk * 5 + cap * width * 2
-        table = torch.zeros(cap + 1, width, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    def same_transpose(tr, tp, cap, n_slots, where):
+        """The slot transpose on the card against its plain version: equal
+        offsets, and each list the same set of flat slots (the card's order
+        within a list is its atomics').  Returns the largest difference."""
+        offsets = tp.offsets.cpu().long()
+        n = int(offsets[-1])
+        rows = torch.repeat_interleave(torch.arange(cap), offsets[1:] - offsets[:-1])
+        key = rows * (n_slots + 1)
+        lists = torch.sort(key + tr.entries[:n].cpu().long())[0] - (key + tp.entries[:n].cpu().long())
+        diff = float((tr.offsets.cpu().long() - offsets).abs().max())
+        if n:
+            diff = max(diff, float(lists.abs().max()))
+        check(diff == 0, f"slot transpose differs from its plain version at {where} by {diff}")
+        return diff
+
+    def bwd_checks(h, d_out, slots, m, where):
+        """K3's training form and its backward against their plain versions
+        in bf16 and f32.  The training form (h needs a gradient) is what a
+        step runs: its output must equal K3's without a gradient, and the
+        transpose the same call builds must equal slot_transpose_plain, as
+        the standalone slot_transpose's must.  Autograd's gradient through it
+        must agree with gather_mean_bwd_plain, equal the standalone
+        gather_mean_bwd's bit for bit, equal itself over two steps (the
+        sum's order is fixed) and, in f32, be compared to the gather form's
+        plain version on the CPU, which sums in the same order.  Returns
+        the bf16 gradient, its plain version, the errors and the
+        transposes' largest difference."""
+        cap, n_slots = h.shape[0], slots.numel()
+        tp = gather.slot_transpose_plain(slots, m, cap)
+        t_diff = same_transpose(gather.slot_transpose(slots, m, cap), tp, cap, n_slots, f"{where}, alone")
+        res = {}
+        for dt, k3_tol, tol in ((torch.bfloat16, K3_BF16_TOL, BWD_BF16_TOL),
+                                (torch.float32, K3_F32_TOL, BWD_F32_TOL)):
+            hq, dq = h.to(dt).detach().requires_grad_(True), d_out.to(dt)
+            grads = []
+            for _ in range(2):
+                y = gather.gather_mean(hq, slots, m)
+                built = gather._transpose_view(y.grad_fn.ws, cap, n_slots)
+                t_diff = max(t_diff, same_transpose(built, tp, cap, n_slots, f"{where}, training form"))
+                grads.append(torch.autograd.grad(y, hq, dq)[0])
+            y = y.detach()
+            check(torch.equal(y, gather.gather_mean(hq.detach(), slots, m)),
+                  f"K3 {where} {dt}: the training form's output differs from K3's")
+            e_k3 = rel_err(y, spmm.gather_mean(hq.detach(), slots, m))
+            check(e_k3 <= k3_tol, f"K3 training form {where} {dt}: error {e_k3} > {k3_tol}")
+            want = gather.gather_mean_bwd_plain(dq, slots, m, cap)
+            err = share_err(grads[0], want)
+            check(err <= tol, f"K3-bwd {where} {dt}: error {err} > {tol}")
+            check(torch.equal(grads[0], grads[1]), f"K3-bwd {where} {dt}: two steps differ")
+            check(torch.equal(grads[0], gather.gather_mean_bwd(dq, slots, m, cap)),
+                  f"K3-bwd {where} {dt}: a step's gradient differs from gather_mean_bwd's")
+            res[dt] = (grads[0], want, err)
+        got, want, err = res[torch.bfloat16]
+        g32, _, err32 = res[torch.float32]
+        csr = gather.gather_mean_bwd_csr_plain(d_out.float().cpu(), m.cpu(),
+                                               gather.SlotTranspose(*(t.cpu() for t in tp)), cap)
+        named = torch.zeros(cap, dtype=torch.bool, device=cuda)
+        named[slots[m].long()] = True
+        check(bool((got[~named] == 0).all()), f"K3-bwd {where}: rows no slot names must be 0")
+        return got, want, t_diff, {"err_bf16": err, "err_f32": err32,
+                                   "f32_equal_to_csr_plain_on_cpu": torch.equal(g32.cpu(), csr),
+                                   "f32_max_abs_vs_csr_plain_on_cpu": max_abs(g32.cpu(), csr)}
+
+    # K3's training form and backward where a SAGE step runs them: layers 1
+    # and 2 (layer 0's input, the gathered features, needs no gradient).
+    # "ms" times the backward as a function, the transpose built in the
+    # call; "as_a_step" times the backward of a training-form output's
+    # autograd node, whose forward built the transpose.  The slot transpose
+    # is timed on its own as well.
+    k3b_layers, st_layers, k3b_err, st_diff = [], [], 0.0, 0.0
+    k3b_sum = dict.fromkeys(sum_keys, 0.0)
+    st_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "host_us_per_call"), 0.0)
+    for x, timed in zip(k3_inputs[1:], k3_timed["k3_bwd"]):
+        l, h, slots, m, d_out = x["layer"], x["h"], x["slots"], x["mask"], x["d_out"]
+        S, kk = slots.shape
+        cap = h.shape[0]
+        got, want, t_diff, errs = bwd_checks(h, d_out, slots, m, f"layer {l}")
+        k3b_err, st_diff = max(k3b_err, max_abs(got, want)), max(st_diff, t_diff)
+        table = torch.zeros(cap + 1, d_out.shape[1], device=cuda, dtype=torch.bfloat16, requires_grad=True)
         bag = torch.where(m, slots, cap).long()
         bag_out = F.embedding_bag(bag, table, mode="mean", padding_idx=cap)
         lay = {
-            "layer": l, "S": S, "k": kk, "F": width, "cap": cap, "valid_slots": int(m.sum()),
-            "bytes": nbytes, "err_bf16": err, "err_f32": err32,
-            "ms": cuda_time_ms(lambda: gather.gather_mean_bwd(d_out, slots, m, cap)),
+            **timed, **errs,
             "plain_ms": cuda_time_ms(lambda: gather.gather_mean_bwd_plain(d_out, slots, m, cap)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "device_ms": call_device_ms(lambda: gather.gather_mean_bwd(d_out, slots, m, cap),
-                                        ["gather_mean_bwd_kernel"]),
             "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
                 bag_out, table, d_out, retain_graph=True)),
         }
-        for key in k3b_sum:
-            k3b_sum[key] += lay[key]
+        n_valid = int(m.sum())
+        st_bytes = S * kk * 5 + (cap + 1) * 4 + n_valid * 4  # slots, mask read; offsets, entries written
+        st = {"layer": l, "S": S, "k": kk, "cap": cap, "bytes": st_bytes,
+              **bench_gather_mean.time_call(lambda: gather.slot_transpose(slots, m, cap)),
+              "plain_ms": cuda_time_ms(lambda: gather.slot_transpose_plain(slots, m, cap)),
+              "bound_ms": st_bytes / HBM_BYTES_PER_S * 1e3}
+        for acc, row in ((k3b_sum, lay), (st_sum, st)):
+            for key in acc:
+                acc[key] += row[key] or 0.0
         k3b_layers.append(lay)
+        st_layers.append(st)
+    # an odd width, all-masked rows, source rows no slot names, and a row
+    # named by 45 slots (a list longer than a warp)
+    odd_src = torch.randn(300, 37, device=cuda, generator=kgen).to(torch.bfloat16)
     odd_d = torch.randn(50, 37, device=cuda, generator=kgen).to(torch.bfloat16)
     odd_s = torch.randint(0, 300, (50, 7), device=cuda, dtype=torch.int32, generator=kgen)
+    odd_s[:, 0] = 5
     odd_m = torch.rand(50, 7, device=cuda, generator=kgen) < 0.6
     odd_m[:2] = False
-    odd_got = gather.gather_mean_bwd(odd_d, odd_s, odd_m, 300)
-    check(share_err(odd_got, gather.gather_mean_bwd_plain(odd_d, odd_s, odd_m, 300)) <= BWD_BF16_TOL,
-          "K3-bwd odd F")
+    odd_m[5:, 0] = True
+    _, _, t_diff, odd_errs = bwd_checks(odd_src, odd_d, odd_s, odd_m, "odd F")
+    st_diff = max(st_diff, t_diff)
     k3b = {
         "name": "gather_mean_bwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
         "replaces": "dist_gnn_tpu/ops/gather_pallas.py:279", "max_abs_err": k3b_err,
         **k3b_sum, "bound_by": "bytes",
     }
+    st_k = {"name": "slot_transpose", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
+            "replaces": "none: a helper of the K3 backward, with no TPU counterpart",
+            "max_abs_err": st_diff, **st_sum, "bound_by": "bytes", "library_ms": None}
     emit({"phase": "kernel", "kernel": "K3-bwd gather_mean_bwd", "dtype": "bfloat16",
           "replaces_note": "the backward of K3; the JAX package differentiates its jnp mean "
                            "through XLA and has no Pallas backward",
-          "times_are": "sums over SAGE layers 1 and 2 of one step", "layers": k3b_layers,
+          "times_are": "sums over SAGE layers 1 and 2 of one step, each call building its transpose",
+          "layers": k3b_layers, "odd_width": odd_errs, "per_step_k3": k3_timed["per_step"],
           "library_is": "backward of F.embedding_bag(mode='mean')", **k3b, **card})
+    emit({"phase": "kernel", "kernel": "slot_transpose", "exact": True,
+          "times_are": "sums over SAGE layers 1 and 2 of one step", "layers": st_layers,
+          "library": "none: no one PyTorch call builds the CSR transpose", **st_k, **card})
 
     # K4 and K5 at the three layers of the GAT bench config on one request's
     # blocks: layer 0 reads the gathered features as a free k-major reshape,
@@ -814,8 +884,7 @@ def main() -> int:
         """Every kernel on the training path swapped for its plain version,
         on the same CUDA tensors (a check of the kernels, not a mode of the
         port)."""
-        swaps = [(gather, "_gather_mean_fwd", spmm.gather_mean),
-                 (gather, "gather_mean_bwd", gather.gather_mean_bwd_plain),
+        swaps = [(sage_mod, "gather_mean", spmm.gather_mean),
                  (gat_ops, "gat_fwd", gat_ops.gat_fwd_plain),
                  (gat_ops, "gat_bwd", gat_ops.gat_bwd_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -974,9 +1043,13 @@ def main() -> int:
     sage32.load_state_dict(sage_train.state_dict())
     _, sage_launches = train_phase(
         "training_sage", sage_train,
-        {"gather_rows": 1, "gather_rows_dma": 0, "gather_mean": 3, "gather_mean_bwd": 2,
-         "gat_fwd": 0, "gat_bwd": 0}, 20,
+        {**dict.fromkeys(counters, 0), "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2,
+         "gather_mean_bwd": 2}, 20,
         lambda *a: kernel_grad_check("training_sage", sage_train, sage32, *a))
+    # K3 three times per step, at layers 1 and 2 with the transpose the
+    # backward reads
+    k3["launches"] = sage_launches["gather_mean"]
+    st_k["launches"] = sage_launches["slot_transpose"]
     k3b["launches"] = sage_launches["gather_mean_bwd"]
     gat_model = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4,
                     compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(5),
@@ -985,8 +1058,7 @@ def main() -> int:
     gat32.load_state_dict(gat_model.state_dict())
     gat_trainer, gat_launches = train_phase(
         "training_gat", gat_model,
-        {"gather_rows": 1, "gather_rows_dma": 0, "gather_mean": 0, "gather_mean_bwd": 0,
-         "gat_fwd": 3, "gat_bwd": 3}, 30,
+        {**dict.fromkeys(counters, 0), "gather_rows": 1, "gat_fwd": 3, "gat_bwd": 3}, 30,
         lambda *a: kernel_grad_check("training_gat", gat_model, gat32, *a))
     k4["launches"] = gat_launches["gat_fwd"]
     k5["launches"] = gat_launches["gat_bwd"]
@@ -1010,8 +1082,7 @@ def main() -> int:
     torch.cuda.synchronize()
     g_serve_s = time.perf_counter() - t0
     g_launches = read_counts()
-    want = {"gather_rows": N_REQUESTS, "gather_rows_dma": 0, "gather_mean": 0, "gather_mean_bwd": 0,
-            "gat_fwd": 3 * N_REQUESTS, "gat_bwd": 0}
+    want = {**dict.fromkeys(counters, 0), "gather_rows": N_REQUESTS, "gat_fwd": 3 * N_REQUESTS}
     check(g_launches == want, f"GAT serving launches {g_launches}, expected {want}")
     check(sum(int(n) for _, n in g_answers) == N_REQUESTS * BATCH, "every seed answered (GAT)")
     emit({"phase": "serving_gat", "requests": N_REQUESTS, "batch": BATCH,
@@ -1021,8 +1092,7 @@ def main() -> int:
           "correct": sum(int(c) for c, _ in g_answers), **card})
 
     # ---- 10. GCN: training and serving ------------------------------------
-    k1_only = {"gather_rows": 1, "gather_rows_dma": 0, "gather_mean": 0, "gather_mean_bwd": 0,
-               "gat_fwd": 0, "gat_bwd": 0}
+    k1_only = {**dict.fromkeys(counters, 0), "gather_rows": 1}
     gcn_model = GCN(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
                     generator=torch.Generator().manual_seed(8), device=cuda)
     gcn32 = GCN(100, 256, meta["num_classes"], len(FAN_OUT), device=cuda)
@@ -1113,7 +1183,7 @@ def main() -> int:
     # ---- 14. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k3b, k4, k5)]})
+    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k3b, k4, k5, st_k)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

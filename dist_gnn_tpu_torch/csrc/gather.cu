@@ -23,22 +23,36 @@
 //   redirected masked slots to an appended zero row; here masked slots are
 //   skipped, so h is never copied.  Bound by bytes: the distinct valid rows
 //   of h read once, slots and mask read once, the output written once.
-//   Design: one warp per destination row; each lane owns a vector of the
-//   row and sums it over the k slots in f32 registers, then divides and
-//   writes once in the input dtype.  (The Pallas kernel accumulated in the
-//   table dtype; f32 here, so bf16 results differ from it by rounding.)
+//   Sums in f32 registers and writes each row once in the input dtype (the
+//   Pallas kernel accumulated in the table dtype, so bf16 results differ
+//   from it by rounding).  Design: one warp per destination row; the
+//   lanes read the row's slots and mask side by side, a ballot names the
+//   valid ones, and each lane loads its vector of 8 valid rows before it
+//   adds any, so 8 loads per lane are in flight.  A k-major form for the
+//   dedup-free first layer, reading slot j's rows as one span with no slot
+//   table, was slower than this one at that layer on the H100 in each of
+//   four designs (PERF.md), so every layer takes this one.
 //
-// K3 backward dg_gather_mean_bwd: d_h[slots[s,j]] += d_out[s] / max(cnt_s, 1)
-//   over valid j, into a zeroed f32 [cap, F] buffer.  The Pallas package has
-//   no backward kernel for K3 (its SAGE differentiates the jnp mean through
-//   XLA); this is the port's own.  Bound by bytes: d_out, slots and mask
-//   read once, the distinct rows of d_h written once (the plain version
-//   materialises the [S*k, F] repeated rows, k times the bytes).  Design:
-//   one warp per destination row, each lane scales its elements of d_out[s]
-//   once and adds them into every valid slot's row with f32 atomics, which
-//   take the duplicate slots of a row and of different rows alike.  The
-//   wrapper casts the f32 sum once to h's dtype.  Atomics commit in no fixed
-//   order, so the last bits of an f32 sum vary from run to run.
+// K3 backward dg_gather_mean_bwd: d_h[r] = sum over the valid (s, j) with
+//   slots[s,j] = r of d_out[s] / cnt_s.  The Pallas package has no backward
+//   kernel for K3 (its SAGE differentiates the jnp mean through XLA); this
+//   is the port's own.  Bound by bytes: d_out, slots and mask read once,
+//   d_h written once.  Design: the gather form, from the slot table's
+//   transpose (a CSR of each source row's valid flat slots s*k + j, built
+//   by count, scan and fill kernels in build_transpose, which
+//   dg_slot_transpose runs alone and dg_gather_mean runs after K3 in the
+//   same call when the forward knows a gradient will be needed; the scan's
+//   last block to finish adds up the tiles, so no pass waits on another
+//   launch).  Each row of d_h is
+//   summed in f32 registers in increasing flat index and written once in
+//   d_out's dtype, zeros where no slot names it: no f32 [cap, F] buffer, no
+//   zero fill, no cast, no atomics on the features.  Rows named by up to 32
+//   slots take one warp each (the lanes rank the entries by shuffles);
+//   hub rows, which a power-law graph's sampled rows name hundreds of
+//   times, take one block each, which orders the list through a bitmap of
+//   the keys in shared memory and splits it over 32 warps, so no warp walks
+//   a hub's list alone.  The sum is the same bits on every run whenever the
+//   slot table has at most 2^20 entries.
 //
 // K2 dg_gather_rows_dma: the same out[i] = table[idx[i]] as K1, by
 //   double-buffered row copies through shared memory.  Replaces
@@ -247,11 +261,30 @@ int launch_gather_rows_dma(const void* table, const int32_t* idx, void* out,
 
 // ---- K3 -------------------------------------------------------------------
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSlotBatch = 8;   // row loads a lane keeps in flight
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// The widest vector (16, 8, 4 or 2 bytes, never below one element) whose
+// size divides `bytes` and both addresses, so no vector access is misaligned.
+int vec_for(const void* a, const void* b, int64_t bytes, int elem) {
+  const uint64_t bits = (uint64_t)(uintptr_t)a | (uint64_t)(uintptr_t)b | (uint64_t)bytes;
+  int v = 16;
+  while (v > elem && bits % v) v >>= 1;
+  return v;
+}
+
+// The slot form: one warp per destination row.  The lanes read the row's
+// slots and mask side by side (lane j: slot j), a ballot gives the valid
+// slots, and the warp walks them in order kSlotBatch at a time, each lane
+// loading its vector of every row of the batch before it adds any, so a
+// lane has up to kSlotBatch loads in flight.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_mean_kernel(const T* __restrict__ h, const int32_t* __restrict__ slots,
-                   const uint8_t* __restrict__ mask, T* __restrict__ out,
-                   int64_t cap, int64_t S, int k, int F) {
+                   const uint8_t* __restrict__ mask, T* __restrict__ out, int64_t cap,
+                   int64_t S, int k, int F) {
   using V = typename Raw<VEC>::T;
   constexpr int E = VEC / (int)sizeof(T);  // elements per lane vector
   const int nvec = F / E;
@@ -262,86 +295,457 @@ gather_mean_kernel(const T* __restrict__ h, const int32_t* __restrict__ slots,
     const int32_t* srow = slots + s * k;
     const uint8_t* mrow = mask + s * k;
     int cnt = 0;
-    for (int j = 0; j < k; ++j) cnt += mrow[j] != 0;
+    for (int j0 = 0; j0 < k; j0 += 32)
+      cnt += __popc(__ballot_sync(kFull, j0 + lane < k && mrow[j0 + lane]));
     const float denom = (float)(cnt > 1 ? cnt : 1);
     V* orow = reinterpret_cast<V*>(out + s * F);
-    for (int v = lane; v < nvec; v += 32) {
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      const int v = v0 + lane;
+      const bool live = v < nvec;  // every lane takes part in the shuffles
       float acc[E];
 #pragma unroll
       for (int q = 0; q < E; ++q) acc[q] = 0.f;
-      for (int j = 0; j < k; ++j) {
-        if (!mrow[j]) continue;
-        const int64_t r = clamp_row(srow[j], cap);
-        const V raw = reinterpret_cast<const V*>(h + r * F)[v];
-        const T* e = reinterpret_cast<const T*>(&raw);
+      for (int j0 = 0; j0 < k; j0 += 32) {
+        const bool valid = j0 + lane < k && mrow[j0 + lane];
+        const int r = valid ? (int)clamp_row(srow[j0 + lane], cap) : 0;
+        unsigned bits = __ballot_sync(kFull, valid);
+        while (bits) {  // the same bits in every lane
+          V raw[kSlotBatch];
+          int n = 0;
 #pragma unroll
-        for (int q = 0; q < E; ++q) acc[q] += to_float(e[q]);
+          for (int u = 0; u < kSlotBatch; ++u) {
+            if (bits) {
+              const int src = __ffs(bits) - 1;
+              bits &= bits - 1;
+              const int64_t row = __shfl_sync(kFull, r, src);
+              if (live) raw[u] = reinterpret_cast<const V*>(h + row * F)[v];
+              n = u + 1;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kSlotBatch; ++u) {
+            if (u < n && live) {
+              const T* e = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+              for (int q = 0; q < E; ++q) acc[q] += to_float(e[q]);
+            }
+          }
+        }
       }
-      V res;
-      T* o = reinterpret_cast<T*>(&res);
+      if (live) {
+        V res;
+        T* o = reinterpret_cast<T*>(&res);
 #pragma unroll
-      for (int q = 0; q < E; ++q) o[q] = from_float<T>(acc[q] / denom);
-      orow[v] = res;
+        for (int q = 0; q < E; ++q) o[q] = from_float<T>(acc[q] / denom);
+        orow[v] = res;
+      }
     }
   }
 }
 
 template <typename T, int VEC>
-void launch_gather_mean(const void* h, const int32_t* slots,
-                        const uint8_t* mask, void* out, int64_t cap, int64_t S,
-                        int k, int F, cudaStream_t stream) {
+int launch_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask, void* out,
+                       int64_t cap, int64_t S, int k, int F, cudaStream_t stream) {
   gather_mean_kernel<T, VEC><<<(unsigned)grid_for(S), kThreads, 0, stream>>>(
-      static_cast<const T*>(h), slots, mask, static_cast<T*>(out), cap, S, k,
-      F);
-}
-
-template <typename T>
-int dispatch_gather_mean(const void* h, const int32_t* slots,
-                         const uint8_t* mask, void* out, int64_t cap,
-                         int64_t S, int k, int F, int vec_bytes,
-                         cudaStream_t stream) {
-  switch (vec_bytes) {
-    case 16: launch_gather_mean<T, 16>(h, slots, mask, out, cap, S, k, F, stream); break;
-    case 8: launch_gather_mean<T, 8>(h, slots, mask, out, cap, S, k, F, stream); break;
-    case 4: launch_gather_mean<T, 4>(h, slots, mask, out, cap, S, k, F, stream); break;
-    case 2:  // one bf16 per lane vector; a float needs at least 4 bytes
-      if constexpr (sizeof(T) == 2) {
-        launch_gather_mean<T, 2>(h, slots, mask, out, cap, S, k, F, stream);
-        break;
-      } else {
-        return (int)cudaErrorInvalidValue;
-      }
-    default: return (int)cudaErrorInvalidValue;
-  }
+      static_cast<const T*>(h), slots, mask, static_cast<T*>(out), cap, S, k, F);
   return (int)cudaGetLastError();
 }
 
-// ---- K3 backward ----------------------------------------------------------
+// ---- K3 backward: the slot table's transpose, then one gather per row -----
 
-template <typename T>
+// Per row s of the slot table: max(cnt_s, 1) into den, and one count for
+// each source row a valid slot names.
 __global__ void __launch_bounds__(kThreads)
-gather_mean_bwd_kernel(const T* __restrict__ d_out,
-                       const int32_t* __restrict__ slots,
-                       const uint8_t* __restrict__ mask,
-                       float* __restrict__ d_h, int64_t cap, int64_t S, int k,
-                       int F) {
+transpose_count_kernel(const int32_t* __restrict__ slots, const uint8_t* __restrict__ mask,
+                       int32_t* __restrict__ counts, float* __restrict__ den, int64_t S, int k,
+                       int64_t cap) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; s < S; s += stride) {
+    int c = 0;
+    for (int j = 0; j < k; ++j) {
+      if (!mask[s * k + j]) continue;
+      atomicAdd(counts + clamp_row(slots[s * k + j], cap), 1);
+      ++c;
+    }
+    den[s] = (float)(c > 1 ? c : 1);
+  }
+}
+
+constexpr int kScanThreads = 1024;  // counts scanned per block; 32 warps
+
+constexpr int kLightMax = 32;  // lists up to this long: one warp a row, in registers
+constexpr int kLightBatch = 4;  // row loads a lane of the light kernel keeps in flight
+
+// The transpose's workspace (the wrapper allocates cap + 1 + 2 n + S +
+// 4 * (cap + 1) int32, n = S * k): what the backward reads first, then
+// scratch.
+struct TransposeWs {
+  int32_t* offsets;      // [cap + 1]: row r's list is entries[offsets[r], offsets[r + 1])
+  int32_t* entries;      // [n]: flat slots s*k + j, valid ones only, by row
+  float* entry_den;      // [n]: the divisor of each entry's row s, beside entries
+  float* den;            // [S]: max(cnt_s, 1), the mean's divisor of row s
+  int32_t* counts;       // [cap] per-row counts, then the scan's ticket [1], then n_heavy [1]
+  int32_t* n_heavy;      // rows whose list is longer than kLightMax
+  int32_t* local;        // [cap] exclusive prefix within each kScanThreads tile
+  int32_t* tile_prefix;  // [tiles + 1] exclusive prefix of the tiles, then the total
+  int32_t* heavy_rows;   // [cap]: the n_heavy rows, in no fixed order
+};
+
+TransposeWs transpose_ws(int32_t* ws, int64_t cap, int64_t S, int k) {
+  TransposeWs w;
+  w.offsets = ws;
+  w.entries = ws + cap + 1;
+  w.entry_den = reinterpret_cast<float*>(w.entries + S * k);
+  w.den = w.entry_den + S * k;
+  w.counts = reinterpret_cast<int32_t*>(w.den + S);
+  w.n_heavy = w.counts + cap + 1;
+  w.local = w.n_heavy + 1;
+  w.tile_prefix = w.local + cap;
+  w.heavy_rows = w.tile_prefix + (cap + kScanThreads - 1) / kScanThreads + 1;
+  return w;
+}
+
+// Exclusive scan of one int per thread over a block of kScanThreads;
+// *total gets the block's sum.  Every thread of the block calls it.
+__device__ __forceinline__ int32_t block_exclusive_scan(int32_t x, int32_t* warp_total,
+                                                        int32_t* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int32_t inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  __syncthreads();  // warp_total is free
+  if (lane == 31) warp_total[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    int32_t y = warp_total[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t z = __shfl_up_sync(kFull, y, o);
+      if (lane >= o) y += z;
+    }
+    warp_total[lane] = y;
+  }
+  __syncthreads();
+  *total = warp_total[31];
+  return inc - x + (w > 0 ? warp_total[w - 1] : 0);
+}
+
+// Each block scans one tile of kScanThreads counts (coalesced, one each)
+// into local[] and leaves its sum in tile_prefix[tile]; the last block to
+// finish (by an atomic ticket) scans the tile sums in place.  The fill
+// adds the two.
+__global__ void __launch_bounds__(kScanThreads)
+transpose_scan_kernel(const int32_t* __restrict__ counts, int32_t* __restrict__ local,
+                      int32_t* tile_prefix, unsigned* ticket, int64_t cap) {
+  __shared__ int32_t warp_total[32];
+  __shared__ bool last;
+  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
+  int32_t total;
+  const int32_t excl = block_exclusive_scan(i < cap ? counts[i] : 0, warp_total, &total);
+  if (i < cap) local[i] = excl;
+  if (threadIdx.x == 0) {
+    tile_prefix[blockIdx.x] = total;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const volatile int32_t* sums = tile_prefix;
+  int32_t carry = 0;
+  for (int64_t b0 = 0; b0 < gridDim.x; b0 += kScanThreads) {
+    const int64_t b = b0 + threadIdx.x;
+    int32_t sum;
+    const int32_t ex = block_exclusive_scan(b < gridDim.x ? sums[b] : 0, warp_total, &sum);
+    if (b < gridDim.x) tile_prefix[b] = carry + ex;
+    carry += sum;
+  }
+  if (threadIdx.x == 0) tile_prefix[gridDim.x] = carry;
+}
+
+// Place each valid slot's flat index s*k + j in its source row's list, and
+// write the final offsets (thread e < n fills, thread e <= cap writes
+// offsets[e] and lists row e among the heavy rows if its list is longer
+// than kLightMax).  A row's cursor counts down from its count, so the order
+// within a list is the atomics' and does not matter (the gather sorts).
+__global__ void __launch_bounds__(kThreads)
+transpose_fill_kernel(const int32_t* __restrict__ slots, const uint8_t* __restrict__ mask,
+                      TransposeWs w, int64_t n, int k, int64_t cap, int64_t tiles) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t end = n > cap + 1 ? n : cap + 1;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < end; e += stride) {
+    if (e < cap) {
+      const int32_t lo = w.local[e] + w.tile_prefix[e / kScanThreads];
+      const int32_t hi = e + 1 < cap ? w.local[e + 1] + w.tile_prefix[(e + 1) / kScanThreads]
+                                     : w.tile_prefix[tiles];
+      w.offsets[e] = lo;
+      if (hi - lo > kLightMax) w.heavy_rows[atomicAdd(w.n_heavy, 1)] = (int32_t)e;
+    } else if (e == cap) {
+      w.offsets[e] = w.tile_prefix[tiles];
+    }
+    if (e < n && mask[e]) {
+      const int64_t r = clamp_row(slots[e], cap);
+      const int32_t start = w.local[r] + w.tile_prefix[r / kScanThreads];
+      const int32_t pos = start + atomicSub(w.counts + r, 1) - 1;
+      w.entries[pos] = (int32_t)e;
+      w.entry_den[pos] = w.den[e / k];
+    }
+  }
+}
+
+// The slot table's transpose into ws (cap >= 1): zero the counts, the
+// scan's ticket and the heavy-row count, then count, scan and fill.
+int build_transpose(const int32_t* slots, const uint8_t* mask, int64_t cap, int64_t S, int k,
+                    int32_t* ws, cudaStream_t st) {
+  const int64_t n = S * k;
+  const TransposeWs w = transpose_ws(ws, cap, S, k);
+  const cudaError_t err = cudaMemsetAsync(w.counts, 0, (size_t)(cap + 2) * sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  if (S > 0)
+    transpose_count_kernel<<<(unsigned)min64((S + kThreads - 1) / kThreads, kMaxBlocks), kThreads,
+                             0, st>>>(slots, mask, w.counts, w.den, S, k, cap);
+  const int64_t tiles = (cap + kScanThreads - 1) / kScanThreads;
+  transpose_scan_kernel<<<(unsigned)tiles, kScanThreads, 0, st>>>(
+      w.counts, w.local, w.tile_prefix, reinterpret_cast<unsigned*>(w.counts + cap), cap);
+  const int64_t end = n > cap + 1 ? n : cap + 1;
+  transpose_fill_kernel<<<(unsigned)min64((end + kThreads - 1) / kThreads, kMaxBlocks), kThreads, 0,
+                          st>>>(slots, mask, w, n, k, cap, tiles);
+  return (int)cudaGetLastError();
+}
+
+// d_h[r] = sum over row r's list, in increasing flat index, of
+// d_out[s] / cnt_s, in f32, written once in d_out's dtype (rows no slot
+// names get zeros).  Two kernels share the rows by list length.
+//
+// Rows with at most kLightMax entries: one warp a row.  Each lane takes one
+// entry and its row's divisor (stored beside it, so both come in one
+// round trip), and ranks it among the others by shuffles; the warp then
+// walks the entries in rank order, kLightBatch loads in flight per lane
+// (most rows have one or two entries, and fewer registers let more rows
+// be in flight).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gather_mean_bwd_kernel(const T* __restrict__ d_out, const int32_t* __restrict__ offsets,
+                       const int32_t* __restrict__ entries, const float* __restrict__ entry_den,
+                       T* __restrict__ d_h, int64_t cap, int k, int F) {
+  using V = typename Raw<VEC>::T;
+  constexpr int E = VEC / (int)sizeof(T);
+  constexpr int kNone = 0x7fffffff;
+  const int nvec = F / E;
   const int lane = threadIdx.x & 31;
   const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       s < S; s += n_warps) {
-    const int32_t* srow = slots + s * k;
-    const uint8_t* mrow = mask + s * k;
-    int cnt = 0;
-    for (int j = 0; j < k; ++j) cnt += mrow[j] != 0;
-    if (cnt == 0) continue;
-    const float denom = (float)cnt;
-    for (int f = lane; f < F; f += 32) {
-      const float g = to_float(d_out[s * F + f]) / denom;
-      for (int j = 0; j < k; ++j) {
-        if (mrow[j]) atomicAdd(d_h + clamp_row(srow[j], cap) * F + f, g);
+  for (int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       r < cap; r += n_warps) {
+    const int b = offsets[r];
+    const int n = offsets[r + 1] - b;
+    if (n > kLightMax) continue;  // the heavy kernel's row
+    const int key = lane < n ? entries[b + lane] : kNone;
+    const float den = lane < n ? entry_den[b + lane] : 1.f;
+    const int s = lane < n ? key / k : 0;
+    int rank = 0;  // keys are distinct; lanes without an entry rank n
+    for (int t = 0; t < n; ++t) rank += __shfl_sync(kFull, key, t) < key;
+    V* orow = reinterpret_cast<V*>(d_h + r * F);
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      const int v = v0 + lane;
+      const bool live = v < nvec;
+      float acc[E];
+#pragma unroll
+      for (int q = 0; q < E; ++q) acc[q] = 0.f;
+      for (int t0 = 0; t0 < n; t0 += kLightBatch) {
+        V raw[kLightBatch];
+        float dn[kLightBatch];
+#pragma unroll
+        for (int u = 0; u < kLightBatch; ++u) {
+          if (t0 + u < n) {
+            const int src = __ffs(__ballot_sync(kFull, rank == t0 + u)) - 1;
+            const int64_t row = __shfl_sync(kFull, s, src);
+            dn[u] = __shfl_sync(kFull, den, src);
+            if (live) raw[u] = reinterpret_cast<const V*>(d_out + row * F)[v];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLightBatch; ++u) {
+          if (t0 + u < n && live) {
+            const T* x = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+            for (int q = 0; q < E; ++q) acc[q] += to_float(x[q]) / dn[u];
+          }
+        }
+      }
+      if (live) {
+        V res;
+        T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int q = 0; q < E; ++q) o[q] = from_float<T>(acc[q]);
+        orow[v] = res;
       }
     }
   }
+}
+
+constexpr int kHeavyThreads = 1024;  // 32 warps
+constexpr int kHeavyWords = 32768;   // bitmap words: keys S*k up to 2^20 are put in order
+
+// Rows with longer lists (hubs: a node that many sampled rows name): one
+// block a row, persistent blocks walking the heavy rows.  The block puts
+// the row's list in increasing order in place (a bitmap of the S*k keys in
+// shared memory, then a block-wide scan of its words' bit counts), then its
+// 32 warps sum contiguous runs of the ordered list in f32, kSlotBatch rows
+// in flight a lane (lanes 0..7 read the batch's entries and divisors), and
+// the runs' sums are added in warp order and the row written once.  With
+// S*k above 2^20 the list is summed in the fill's order.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kHeavyThreads)
+gather_mean_bwd_heavy_kernel(const T* __restrict__ d_out, const int32_t* __restrict__ offsets,
+                             int32_t* entries, const float* __restrict__ den_of,
+                             const int32_t* __restrict__ heavy_rows,
+                             const int32_t* __restrict__ n_heavy, T* __restrict__ d_h,
+                             int64_t n_keys, int k, int F) {
+  using V = typename Raw<VEC>::T;
+  constexpr int E = VEC / (int)sizeof(T);
+  extern __shared__ unsigned sm_bits[];  // [words], then [32 warps][32 lanes][E] partial sums
+  __shared__ int32_t warp_total[32];
+  const int64_t words64 = (n_keys + 31) / 32;
+  const bool order = words64 <= kHeavyWords;
+  const int words = order ? (int)words64 : 0;
+  float* sm_part = reinterpret_cast<float*>(sm_bits + words);
+  const int nvec = F / E;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int rows = *n_heavy;
+  for (int i = blockIdx.x; i < rows; i += gridDim.x) {
+    const int64_t r = heavy_rows[i];
+    const int b = offsets[r];
+    const int n = offsets[r + 1] - b;
+    int32_t* list = entries + b;
+    if (order) {
+      for (int t = threadIdx.x; t < words; t += kHeavyThreads) sm_bits[t] = 0u;
+      __syncthreads();
+      for (int t = threadIdx.x; t < n; t += kHeavyThreads) {
+        const int e = list[t];
+        atomicOr(sm_bits + (e >> 5), 1u << (e & 31));
+      }
+      __syncthreads();  // every key read before any is written back
+      const int per = (words + kHeavyThreads - 1) / kHeavyThreads;
+      const int lo = threadIdx.x * per < words ? threadIdx.x * per : words;
+      const int hi = lo + per < words ? lo + per : words;
+      int own = 0;
+      for (int t = lo; t < hi; ++t) own += __popc(sm_bits[t]);
+      int32_t total;
+      int pos = block_exclusive_scan(own, warp_total, &total);
+      for (int t = lo; t < hi; ++t)
+        for (unsigned m = sm_bits[t]; m; m &= m - 1) list[pos++] = t * 32 + __ffs(m) - 1;
+      __syncthreads();  // the ordered list is visible to the block
+    }
+    const int run = (n + 31) / 32;
+    const int lo = w * run < n ? w * run : n, hi = lo + run < n ? lo + run : n;
+    V* orow = reinterpret_cast<V*>(d_h + r * F);
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      const int v = v0 + lane;
+      const bool live = v < nvec;
+      float acc[E];
+#pragma unroll
+      for (int q = 0; q < E; ++q) acc[q] = 0.f;
+      for (int t0 = lo; t0 < hi; t0 += kSlotBatch) {
+        // lanes 0..7 take the batch's entries: their source rows and divisors
+        int s = 0;
+        float den = 1.f;
+        if (lane < kSlotBatch && t0 + lane < hi) {
+          s = list[t0 + lane] / k;
+          den = den_of[s];
+        }
+        V raw[kSlotBatch];
+        float dn[kSlotBatch];
+#pragma unroll
+        for (int u = 0; u < kSlotBatch; ++u) {
+          const int64_t row = __shfl_sync(kFull, s, u);
+          dn[u] = __shfl_sync(kFull, den, u);
+          if (t0 + u < hi && live) raw[u] = reinterpret_cast<const V*>(d_out + row * F)[v];
+        }
+#pragma unroll
+        for (int u = 0; u < kSlotBatch; ++u) {
+          if (t0 + u < hi && live) {
+            const T* x = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+            for (int q = 0; q < E; ++q) acc[q] += to_float(x[q]) / dn[u];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < E; ++q) sm_part[(w * 32 + lane) * E + q] = acc[q];
+      __syncthreads();
+      if (w == 0 && live) {
+        float sum[E];
+#pragma unroll
+        for (int q = 0; q < E; ++q) sum[q] = 0.f;
+        for (int u = 0; u < 32; ++u)
+#pragma unroll
+          for (int q = 0; q < E; ++q) sum[q] += sm_part[(u * 32 + lane) * E + q];
+        V res;
+        T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int q = 0; q < E; ++q) o[q] = from_float<T>(sum[q]);
+        orow[v] = res;
+      }
+      __syncthreads();  // sm_part and the bitmap are free
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64_t cap,
+                           int64_t n_keys, int k, int F, cudaStream_t stream) {
+  constexpr int E = VEC / (int)sizeof(T);
+  const int64_t words = (n_keys + 31) / 32;
+  const size_t part = 32 * 32 * E * sizeof(float);
+  const size_t smem = (words <= kHeavyWords ? (size_t)words * sizeof(unsigned) : 0) + part;
+  auto heavy = gather_mean_bwd_heavy_kernel<T, VEC>;
+  static int n_sm = 0;  // set once: the SMs of the first device this library launches on
+  if (n_sm == 0) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(heavy, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)(kHeavyWords * sizeof(unsigned) + part));
+    if (err != cudaSuccess) return (int)err;
+  }
+  gather_mean_bwd_kernel<T, VEC><<<(unsigned)grid_for(cap), kThreads, 0, stream>>>(
+      static_cast<const T*>(d_out), tw.offsets, tw.entries, tw.entry_den, static_cast<T*>(d_h), cap, k,
+      F);
+  heavy<<<(unsigned)n_sm, kHeavyThreads, smem, stream>>>(
+      static_cast<const T*>(d_out), tw.offsets, tw.entries, tw.den, tw.heavy_rows, tw.n_heavy,
+      static_cast<T*>(d_h), n_keys, k, F);
+  return (int)cudaGetLastError();
+}
+
+// Instantiate LAUNCH<T, VEC> for the vector width `vec` (a bf16 may take
+// 2-byte vectors, a float at least 4).
+#define DG_DISPATCH_VEC(T, vec, LAUNCH, ...)                                  \
+  switch (vec) {                                                              \
+    case 16: return LAUNCH<T, 16>(__VA_ARGS__);                               \
+    case 8: return LAUNCH<T, 8>(__VA_ARGS__);                                 \
+    case 4: return LAUNCH<T, 4>(__VA_ARGS__);                                 \
+    case 2:                                                                   \
+      if constexpr (sizeof(T) == 2) return LAUNCH<T, 2>(__VA_ARGS__);         \
+      return (int)cudaErrorInvalidValue;                                      \
+    default: return (int)cudaErrorInvalidValue;                               \
+  }
+
+template <typename T>
+int dispatch_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask, void* out,
+                         int64_t cap, int64_t S, int k, int F, cudaStream_t stream) {
+  const int vec = vec_for(h, out, (int64_t)F * sizeof(T), sizeof(T));
+  DG_DISPATCH_VEC(T, vec, launch_gather_mean, h, slots, mask, out, cap, S, k, F, stream)
+}
+
+template <typename T>
+int dispatch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64_t cap,
+                             int64_t n_keys, int k, int F, cudaStream_t stream) {
+  const int vec = vec_for(d_out, d_h, (int64_t)F * sizeof(T), sizeof(T));
+  DG_DISPATCH_VEC(T, vec, launch_gather_mean_bwd, d_out, tw, d_h, cap, n_keys, k, F, stream)
 }
 
 }  // namespace
@@ -399,48 +803,52 @@ int64_t dg_smem_optin_bytes(int device) {
   return bytes;
 }
 
-// K3.  dtype 0 = float32, 1 = bfloat16.  h is [cap, F], slots and mask
-// (one byte per bool) are [S, k], out is [S, F]; vec_bytes divides
-// F * itemsize and the alignment of h and out.
-int dg_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask,
-                   void* out, int64_t cap, int64_t S, int k, int F, int dtype,
-                   int vec_bytes, void* stream) {
-  if (S == 0) return 0;
-  if (cap <= 0 || k <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_gather_mean<float>(h, slots, mask, out, cap, S, k, F, vec_bytes, s);
-    case 1:
-      return dispatch_gather_mean<__nv_bfloat16>(h, slots, mask, out, cap, S, k, F, vec_bytes, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// K3 backward.  dtype 0 = float32, 1 = bfloat16 (of d_out); d_out is
-// [S, F], slots and mask [S, k], d_h a zeroed f32 [cap, F] buffer.
-int dg_gather_mean_bwd(const void* d_out, const int32_t* slots,
-                       const uint8_t* mask, float* d_h, int64_t cap, int64_t S,
-                       int k, int F, int dtype, void* stream) {
+// K3, the slot form.  dtype 0 = float32, 1 = bfloat16.  h is [cap, F],
+// slots and mask (one byte per bool) are [S, k], out is [S, F]; the vector
+// width follows from F and the addresses of h and out.  With ws (else
+// null), the same call then builds the slot table's transpose into it, as
+// dg_slot_transpose does.
+int dg_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask, void* out,
+                   int64_t cap, int64_t S, int k, int F, int dtype, int32_t* ws, void* stream) {
   if (S == 0) return 0;
   if (cap <= 0 || k <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = (unsigned)grid_for(S);
+  int rc;
   switch (dtype) {
-    case 0:
-      gather_mean_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
-          static_cast<const float*>(d_out), slots, mask, d_h, cap, S, k, F);
-      break;
-    case 1:
-      gather_mean_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(d_out), slots, mask, d_h, cap, S,
-          k, F);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: rc = dispatch_gather_mean<float>(h, slots, mask, out, cap, S, k, F, st); break;
+    case 1: rc = dispatch_gather_mean<__nv_bfloat16>(h, slots, mask, out, cap, S, k, F, st); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (rc != 0 || ws == nullptr) return rc;
+  return build_transpose(slots, mask, cap, S, k, ws, st);
+}
+
+// The transpose of an [S, k] slot table into ws (TransposeWs; the caller
+// allocates cap + 1 + 2*S*k + S + 4 * (cap + 1) int32): offsets [cap + 1]
+// at ws, then entries [S*k], flat indices s*k + j of the valid slots
+// grouped by row, then their rows' divisors, then each row's divisor.
+// Four device operations: zero the counts, count, scan, fill.
+int dg_slot_transpose(const int32_t* slots, const uint8_t* mask, int64_t cap, int64_t S, int k,
+                      int32_t* ws, void* stream) {
+  if (cap <= 0 || S < 0 || k < 0) return (int)cudaErrorInvalidValue;
+  return build_transpose(slots, mask, cap, S, k, ws, static_cast<cudaStream_t>(stream));
+}
+
+// K3 backward.  dtype 0 = float32, 1 = bfloat16 (of d_out and d_h); d_out
+// is [S, F], ws the transpose of the [S, k] slot table (dg_slot_transpose,
+// or dg_gather_mean with ws), d_h [cap, F], every row written.  Two
+// kernels: the rows with short lists, then the heavy rows.
+int dg_gather_mean_bwd(const void* d_out, int32_t* ws, void* d_h, int64_t cap, int64_t S, int k,
+                       int F, int dtype, void* stream) {
+  if (cap == 0) return 0;
+  if (cap < 0 || S < 0 || k < 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TransposeWs tw = transpose_ws(ws, cap, S, k);
+  switch (dtype) {
+    case 0: return dispatch_gather_mean_bwd<float>(d_out, tw, d_h, cap, S * k, k, F, st);
+    case 1: return dispatch_gather_mean_bwd<__nv_bfloat16>(d_out, tw, d_h, cap, S * k, k, F, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

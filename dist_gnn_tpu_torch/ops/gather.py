@@ -6,8 +6,15 @@ Counterpart of ``dist_gnn_tpu/ops/gather_pallas.py`` (``gather_rows``,
 ``csrc/gather.cu``, whose header notes which Pallas kernel each replaces,
 what bounds it on the card and how its design meets that bound.
 ``gather_mean`` is differentiable: a ``torch.autograd.Function`` whose
-backward is a kernel of its own (:func:`gather_mean_bwd`), so the gradient
-reaches the layers below on the card as it does on the CPU.
+forward also builds the slot table's transpose (:func:`slot_transpose`)
+and whose backward is a kernel of its own (:func:`gather_mean_bwd`), so the
+gradient reaches the layers below on the card as it does on the CPU.
+
+K3's launch path is kept short, since at the small layers the host's work
+per call, not the card's, sets the time: slots and mask are checked once
+per block (the backward reuses the forward's check), a call with no
+gradient to track skips the autograd node, and the kernels pick their own
+vector width from the addresses.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and only for
 them.  A CUDA tensor launches the kernel, or raises: there is no fallback.
@@ -19,6 +26,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,9 +46,11 @@ def _lib() -> ctypes.CDLL:
         lib.dg_gather_rows_dma.restype = i32
         lib.dg_smem_optin_bytes.argtypes = [i32]
         lib.dg_smem_optin_bytes.restype = i64
-        lib.dg_gather_mean.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+        lib.dg_gather_mean.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, p, p]
         lib.dg_gather_mean.restype = i32
-        lib.dg_gather_mean_bwd.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, p]
+        lib.dg_slot_transpose.argtypes = [p, p, i64, i64, i32, p, p]
+        lib.dg_slot_transpose.restype = i32
+        lib.dg_gather_mean_bwd.argtypes = [p, p, p, i64, i64, i32, i32, i32, p]
         lib.dg_gather_mean_bwd.restype = i32
         lib._argtypes_set = True
     return lib
@@ -62,12 +72,14 @@ def _require(cond: bool, msg: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     """The current stream of ``t``'s device, which must be the current
-    device: the kernels launch there."""
-    _require(
-        t.device.index in (None, torch.cuda.current_device()),
-        f"{t.device} is not the current CUDA device",
-    )
-    return torch.cuda.current_stream().cuda_stream
+    device: the kernels launch there.  Takes the raw forms of
+    ``torch.cuda.current_device()`` and ``current_stream().cuda_stream``,
+    which a CUDA build of PyTorch has and which skip the lazy-init check and
+    building a Stream object (0.2 against 7.7 µs a call, PERF.md)."""
+    index = t.get_device()
+    if index != torch._C._cuda_getDevice():
+        raise ValueError(f"{t.device} is not the current CUDA device")
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check_launch(rc: int, name: str) -> None:
@@ -178,44 +190,131 @@ def gather_rows_dma(table: torch.Tensor, idx: torch.Tensor, rows_per_step: int =
 gather_rows_dma.launches = 0
 
 
-def _check_mean_args(x: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor, name: str) -> None:
-    """Raise unless ``x`` (h or d_out) and the [S, k] slot table suit K3."""
+def _check_rows(x: torch.Tensor, name: str) -> None:
+    """Raise ``ValueError`` unless ``x`` (h or d_out, which the caller has
+    found on a CUDA device) is a contiguous 2-D float32 or bfloat16 tensor."""
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name} dtype {x.dtype} is not float32 or bfloat16")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D tensor")
+
+
+def _check_slots(slots: torch.Tensor, mask: torch.Tensor, index: int) -> None:
+    """Raise ``ValueError`` unless the [S, k] slot table lies on CUDA device
+    ``index`` as a contiguous int32 ``slots`` and a bool ``mask`` of its
+    shape.  With :func:`_check_rows` these are the checks that keep K3's
+    kernels inside their allocations (the kernels clamp each slot into the
+    table).  Device indices are compared as ints: a CPU or meta tensor has
+    index -1."""
+    if slots.get_device() != index or mask.get_device() != index:
+        raise ValueError(f"slots and mask must lie on CUDA device {index}")
     _require(
-        x.is_cuda and slots.device == x.device and mask.device == x.device,
-        f"{name}, slots and mask must share one CUDA device",
-    )
-    _require(x.dtype in _DTYPE_CODES, f"{name} dtype {x.dtype} is not float32 or bfloat16")
-    _require(x.dim() == 2 and x.is_contiguous(), f"{name} must be a contiguous 2-D tensor")
-    _require(
-        slots.dim() == 2 and slots.dtype == torch.int32 and slots.is_contiguous(),
+        slots.dtype == torch.int32 and slots.dim() == 2 and slots.is_contiguous(),
         "slots must be a contiguous [S, k] int32 tensor",
     )
     _require(
-        mask.shape == slots.shape and mask.dtype == torch.bool and mask.is_contiguous(),
+        mask.dtype == torch.bool and mask.shape == slots.shape and mask.is_contiguous(),
         "mask must be a contiguous bool tensor shaped like slots",
     )
 
 
-def _gather_mean_fwd(h_src: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The forward: the plain version for CPU tensors, K3 for CUDA ones."""
-    if h_src.device.type == "cpu":
-        return spmm.gather_mean(h_src, slots, mask)
-    _check_mean_args(h_src, slots, mask, "h_src")
+def _needs_grad(h: torch.Tensor) -> bool:
+    return h.requires_grad and torch.is_grad_enabled()
+
+
+def _launch_gather_mean(
+    h_src: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor, ws: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K3 on checked CUDA arguments; with ``ws`` (from
+    :func:`_new_ws`) the same C call then builds the slot table's
+    transpose into it, as :func:`slot_transpose` does."""
     cap, F = h_src.shape
     S, k = slots.shape
     if S == 0 or F == 0 or k == 0 or cap == 0:
         # nothing to average: every row is empty (cap == 0 leaves no row a
         # valid slot could name)
-        return torch.zeros((S, F), dtype=h_src.dtype, device=h_src.device)
-    out = torch.empty((S, F), dtype=h_src.dtype, device=h_src.device)
+        if ws is not None:
+            _build_transpose(slots, mask, cap, ws)
+        return h_src.new_zeros((S, F))
+    out = h_src.new_empty((S, F))
     rc = _lib().dg_gather_mean(
         h_src.data_ptr(), slots.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        cap, S, k, F, _DTYPE_CODES[h_src.dtype],
-        _vec_bytes(F * h_src.element_size(), h_src, out), _stream(h_src),
+        cap, S, k, F, _DTYPE_CODES[h_src.dtype], None if ws is None else ws.data_ptr(), _stream(h_src),
     )
     _check_launch(rc, "gather_mean")
     gather_mean.launches += 1
+    if ws is not None:
+        slot_transpose.launches += 1
     return out
+
+
+class SlotTranspose(NamedTuple):
+    """The transpose of an [S, k] slot table: source row r's valid slots
+    are the flat indices ``s*k + j`` in ``entries[offsets[r]:offsets[r+1]]``.
+    ``offsets`` is [cap + 1] int32; ``entries`` is [S*k] int32, of which
+    the first ``offsets[cap]`` count (the rest is unspecified)."""
+
+    offsets: torch.Tensor
+    entries: torch.Tensor
+
+
+def _transpose_view(ws: torch.Tensor, cap: int, n_slots: int) -> SlotTranspose:
+    """The offsets and entries of a transpose workspace built for ``cap``
+    rows from a slot table of ``n_slots`` entries."""
+    return SlotTranspose(ws[: cap + 1], ws[cap + 1 : cap + 1 + n_slots])
+
+
+def slot_transpose_plain(slots: torch.Tensor, mask: torch.Tensor, cap: int) -> SlotTranspose:
+    """Plain version of the slot transpose: each list in increasing flat
+    index, the unused tail of ``entries`` -1.  Slots are clamped into
+    [0, cap) as the kernels clamp them."""
+    S, k = slots.shape
+    flat = torch.nonzero(mask.reshape(-1)).reshape(-1)  # increasing
+    rows = torch.clamp(slots.reshape(-1)[flat].long(), 0, max(cap - 1, 0))
+    order = torch.argsort(rows, stable=True)
+    offsets = torch.zeros(cap + 1, dtype=torch.int32, device=slots.device)
+    offsets[1:] = torch.cumsum(torch.bincount(rows, minlength=cap), 0)
+    entries = torch.full((S * k,), -1, dtype=torch.int32, device=slots.device)
+    entries[: flat.numel()] = flat[order].to(torch.int32)
+    return SlotTranspose(offsets, entries)
+
+
+def _new_ws(slots: torch.Tensor, cap: int) -> torch.Tensor:
+    """An int32 workspace for the transpose of ``slots`` into ``cap`` rows,
+    as ``dg_slot_transpose`` lays it out: offsets [cap + 1], entries [S*k],
+    their rows' divisors [S*k], each row's divisor [S], then the kernels'
+    scratch."""
+    S, k = slots.shape
+    _require(S * k < 2**31, "the slot table exceeds the transpose's int32 indices")
+    return slots.new_empty(cap + 1 + 2 * S * k + S + 4 * (cap + 1))
+
+
+def _build_transpose(slots: torch.Tensor, mask: torch.Tensor, cap: int, ws: torch.Tensor) -> torch.Tensor:
+    """Build the slot table's transpose into ``ws`` (checked arguments)."""
+    if cap == 0:
+        ws.zero_()
+        return ws
+    S, k = slots.shape
+    rc = _lib().dg_slot_transpose(slots.data_ptr(), mask.data_ptr(), cap, S, k, ws.data_ptr(), _stream(slots))
+    _check_launch(rc, "slot_transpose")
+    slot_transpose.launches += 1
+    return ws
+
+
+def slot_transpose(slots: torch.Tensor, mask: torch.Tensor, cap: int) -> SlotTranspose:
+    """The transpose of an [S, k] slot table into ``cap`` source rows, which
+    K3's backward reads — on the card a zero fill and three kernels (count,
+    scan, fill), plain version :func:`slot_transpose_plain`.  On the card
+    a list's order is the atomics' (the backward puts it in order as it
+    reads); offsets equal the plain version's."""
+    if slots.device.type == "cpu":
+        return slot_transpose_plain(slots, mask, cap)
+    _require(slots.is_cuda, "slots must lie on a CUDA device")
+    _check_slots(slots, mask, slots.get_device())
+    return _transpose_view(_build_transpose(slots, mask, cap, _new_ws(slots, cap)), cap, slots.numel())
+
+
+slot_transpose.launches = 0
 
 
 def gather_mean_bwd_plain(
@@ -234,6 +333,51 @@ def gather_mean_bwd_plain(
     return d_h.to(d_out.dtype)
 
 
+def gather_mean_bwd_csr_plain(
+    d_out: torch.Tensor, mask: torch.Tensor, transpose: SlotTranspose, cap: int
+) -> torch.Tensor:
+    """Plain version of the K3 backward's gather form, summed as the kernel
+    sums: ``d_h[r]`` is the f32 sum over row r's list, in increasing flat
+    index, of ``d_out[s] / cnt_s``, cast once to d_out's dtype."""
+    k = mask.shape[1]
+    offsets = transpose.offsets.long()
+    entries = transpose.entries[: int(offsets[-1])].long()
+    rows = torch.repeat_interleave(torch.arange(cap, device=d_out.device), offsets[1:] - offsets[:-1])
+    entries = entries[torch.argsort(rows * (mask.numel() + 1) + entries)]  # each list in order
+    cnt = torch.clamp(mask.sum(dim=1), min=1).to(torch.float32)
+    scaled = d_out.float() / cnt[:, None]
+    d_h = torch.zeros((cap, d_out.shape[1]), dtype=torch.float32, device=d_out.device)
+    d_h.index_add_(0, rows, scaled[entries // k])
+    return d_h.to(d_out.dtype)
+
+
+def _launch_gather_mean_bwd(d_out: torch.Tensor, mask: torch.Tensor, ws: torch.Tensor, cap: int) -> torch.Tensor:
+    """The K3 backward kernels: d_out checked by the caller, mask (which
+    gives the slot table's shape) and the transpose workspace ``ws`` by the
+    forward that built it."""
+    F = d_out.shape[1]
+    d_h = d_out.new_empty((cap, F))
+    if cap == 0 or F == 0:
+        return d_h
+    rc = _lib().dg_gather_mean_bwd(
+        d_out.data_ptr(), ws.data_ptr(), d_h.data_ptr(),
+        cap, mask.shape[0], mask.shape[1], F, _DTYPE_CODES[d_out.dtype], _stream(d_out),
+    )
+    _check_launch(rc, "gather_mean_bwd")
+    gather_mean_bwd.launches += 1
+    return d_h
+
+
+def _check_d_out(d_out: torch.Tensor, mask: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless d_out suits the backward of a forward
+    whose mask is ``mask``."""
+    _require(d_out.is_cuda, "d_out must lie on a CUDA device")
+    _check_rows(d_out, "d_out")
+    _require(d_out.get_device() == mask.get_device(), "d_out must lie on the forward's device")
+    if d_out.shape[0] != mask.shape[0]:
+        raise ValueError(f"d_out has {d_out.shape[0]} rows, slots {mask.shape[0]}")
+
+
 def gather_mean_bwd(
     d_out: torch.Tensor,  # [S, F] float32 or bfloat16
     slots: torch.Tensor,  # [S, k] int32
@@ -241,28 +385,20 @@ def gather_mean_bwd(
     cap: int,
 ) -> torch.Tensor:
     """Gradient of :func:`gather_mean` with respect to h_src, [cap, F] in
-    d_out's dtype — the K3 backward kernel on the card (plain version:
-    :func:`gather_mean_bwd_plain`).
+    d_out's dtype — on the card the slot table's transpose
+    (:func:`slot_transpose`), then the K3 backward kernel (plain version:
+    :func:`gather_mean_bwd_plain`).  In a training step the forward builds
+    the transpose and the backward launches the kernel alone.
 
-    The kernel adds in f32 with atomics, in no fixed order, and casts once:
-    f32 results agree with the plain version to rounding (the card check
-    holds them to 1e-4 of the largest magnitude), bf16 to 5e-2."""
+    The kernels sum each row of d_h in f32 in increasing flat slot index
+    and round once: the same bits on every run whenever S*k <= 2**20; f32
+    results agree with the plain version to rounding (the card check holds
+    them to 1e-4 of the largest magnitude), bf16 to 5e-2."""
     if d_out.device.type == "cpu":
         return gather_mean_bwd_plain(d_out, slots, mask, cap)
-    _check_mean_args(d_out, slots, mask, "d_out")
-    S, k = slots.shape
-    F = d_out.shape[1]
-    _require(d_out.shape[0] == S, f"d_out has {d_out.shape[0]} rows, slots {S}")
-    d_h = torch.zeros((cap, F), dtype=torch.float32, device=d_out.device)
-    if S == 0 or F == 0 or k == 0 or cap == 0:
-        return d_h.to(d_out.dtype)
-    rc = _lib().dg_gather_mean_bwd(
-        d_out.data_ptr(), slots.data_ptr(), mask.data_ptr(), d_h.data_ptr(),
-        cap, S, k, F, _DTYPE_CODES[d_out.dtype], _stream(d_out),
-    )
-    _check_launch(rc, "gather_mean_bwd")
-    gather_mean_bwd.launches += 1
-    return d_h.to(d_out.dtype)
+    _check_d_out(d_out, mask)
+    _check_slots(slots, mask, d_out.get_device())
+    return _launch_gather_mean_bwd(d_out, mask, _build_transpose(slots, mask, cap, _new_ws(slots, cap)), cap)
 
 
 gather_mean_bwd.launches = 0
@@ -270,18 +406,34 @@ gather_mean_bwd.launches = 0
 
 class _GatherMean(torch.autograd.Function):
     """K3 forward with the K3 backward as its gradient (slots and mask get
-    none)."""
+    none).  On the card the forward checks slots and mask once and builds
+    the slot transpose for the backward, which then checks only d_out."""
 
     @staticmethod
     def forward(ctx, h_src, slots, mask):
         ctx.save_for_backward(slots, mask)
         ctx.cap = h_src.shape[0]
-        return _gather_mean_fwd(h_src, slots, mask)
+        if h_src.device.type == "cpu":
+            ctx.ws = None
+            return spmm.gather_mean(h_src, slots, mask)
+        _check_k3(h_src, slots, mask)
+        ctx.ws = _new_ws(slots, ctx.cap)
+        return _launch_gather_mean(h_src, slots, mask, ctx.ws)
 
     @staticmethod
     def backward(ctx, d_out):
         slots, mask = ctx.saved_tensors
-        return gather_mean_bwd(d_out.contiguous(), slots, mask, ctx.cap), None, None
+        d_out = d_out.contiguous()
+        if ctx.ws is None:
+            return gather_mean_bwd_plain(d_out, slots, mask, ctx.cap), None, None
+        _check_d_out(d_out, mask)
+        return _launch_gather_mean_bwd(d_out, mask, ctx.ws, ctx.cap), None, None
+
+
+def _check_k3(h_src: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor) -> None:
+    _require(h_src.is_cuda, "h_src must lie on a CUDA device")
+    _check_rows(h_src, "h_src")
+    _check_slots(slots, mask, h_src.get_device())
 
 
 def gather_mean(
@@ -290,13 +442,20 @@ def gather_mean(
     mask: torch.Tensor,  # [S, k] bool
 ) -> torch.Tensor:
     """Masked neighbour mean per destination row, [S, F] in h's dtype — K3
-    on the card (plain version: :func:`spmm.gather_mean`), differentiable
-    in h_src through :func:`gather_mean_bwd`.
+    on the card (plain version: :func:`spmm.gather_mean`),
+    differentiable in h_src through :func:`gather_mean_bwd`.  Without a
+    gradient to track it launches the kernel directly, with no autograd
+    node and no transpose.
 
     Sums in f32 and rounds once, so bf16 results differ from the plain
     version (which rounds the sum and the quotient in bf16) by rounding:
     the card check holds bf16 to rtol 1e-2 and f32 to rtol 1e-5."""
-    return _GatherMean.apply(h_src, slots, mask)
+    if _needs_grad(h_src):
+        return _GatherMean.apply(h_src, slots, mask)
+    if not h_src.is_cuda and h_src.device.type == "cpu":
+        return spmm.gather_mean(h_src, slots, mask)
+    _check_k3(h_src, slots, mask)
+    return _launch_gather_mean(h_src, slots, mask)
 
 
 gather_mean.launches = 0
