@@ -17,16 +17,23 @@ weights from a seed.  Phases, one JSON line each:
 1. device: the card's name, count and power limit;
 2. build: every kernel source compiled, one nvcc each, in parallel;
 3. sampler: ``sample_blocks`` on CUDA and on the CPU with the same
-   injected row keys gives bit-identical blocks (this holds the int64
-   emulation of the uint32 PRNG on the card);
+   injected row keys gives bit-identical blocks; K6 (``sample_uniform``,
+   one kernel per hop) held bit for bit against ``sample_uniform_plain``
+   on the card at the three hops of the main path, without and with
+   replacement, and on a graph whose rows have degree 0, 1, k, k + 1, 2^b,
+   2^b + 1 and a hub, with padded seeds, under int32 and int64 ``indptr``;
+   an edgeless graph answered without a launch; K6's times beside the
+   plain version's and its bound, and one ``sample_blocks`` call's
+   kernels, device ms and wall ms;
 4. kernels: K1 (``gather_rows``) and K3 (``gather_mean``) held against
    their plain versions on the card at the main path's shapes, plus f32,
    an odd width, all-masked rows and an empty input; times of the kernel
    (CUDA events, the device time of every op a call launches, host µs per
    call), the plain version and the PyTorch library call, and the least
-   time the card could take (bytes over 3.35 TB/s);
+   time the card could take (bytes over 3.35 TB/s); K1 also with a table
+   off 16-byte alignment, one-byte rows and a short last run;
    K2 (``gather_rows_dma``) held equal to its plain version at the
-   main-path shape, the gather bench's shape in bf16 and f32, an odd
+   main-path shape and the gather bench's, each in bf16 and f32, an odd
    width, an L that is not a multiple of its rows per step and an empty
    input, plus the raise for a rows per step whose two stages exceed
    shared memory; its times beside K1's and ``index_select``'s;
@@ -35,15 +42,17 @@ weights from a seed.  Phases, one JSON line each:
    per variant;
 5. serving: ``Trainer.eval_step`` answers 8 batches of 512 validation
    seeds; one batch's logits are held against the plain path on the same
-   blocks, and the launch counters show K1 once and K3 three times per
-   request;
+   blocks, and the launch counters show K6 three times, K1 once and K3
+   three times per request;
 6. full-graph inference: ``full_graph_inference`` over all 500k nodes,
    timed, and held against the same function on the CPU on a 20k-node
    graph;
 7. kernels: the slot transpose and the K3 backward at SAGE layers 1 and
-   2 (f32 bitwise equal over two calls), and K4 and K5 at the three GAT
-   layers, held against their plain versions on the card in bf16, plus
-   f32, an odd width and all-masked rows; times as in 4.
+   2 and at a power-law slot table of 70,000 x 16 slots, above the 2^20
+   keys of one bitmap window, with hub rows (f32 bitwise equal over two
+   calls), and K4 and K5 at the three GAT layers, held against their
+   plain versions on the card in bf16, plus f32, an odd width and
+   all-masked rows; times as in 4.
    Before K4/K5: each GAT layer's launch plan (rows, head split, shared
    memory, blocks per SM, waves) and the HMMA (tensor-core) instructions
    of every ``gat`` kernel in ``cuobjdump -sass`` of the built library
@@ -54,14 +63,16 @@ weights from a seed.  Phases, one JSON line each:
 8. training_sage / training_gat: the loss and every parameter's gradient
    on one step's blocks against the same step with every kernel swapped
    for its plain version, in f32 and in bf16, then 8 ``Trainer.train_step`` calls timed, with
-   the launch counters per step (SAGE: K1 1, K3 3, the slot transpose 2,
-   K3-bwd 2; GAT: K1 1, K4 3, K5 3), a stage breakdown and the device's busy share;
+   the launch counters per step (SAGE: K6 3, K1 1, K3 3, the slot
+   transpose 2, K3-bwd 2; GAT: K6 3, K1 1, K4 3, K5 3), a stage breakdown
+   and the device's busy share; k1_or_k2_in_step: the feature gather of a
+   SAGE step through K1 and through K2, in turns, in bf16 and f32;
 9. serving_gat: ``Trainer.eval_step`` with the GAT model, K4 three times
    per request, logits against the plain path;
 10. training_gcn / serving_gcn: one GCN step's f32 loss and gradients
     against the same step on the CPU (same blocks and keys), then 8
-    ``train_step`` calls and 8 ``eval_step`` requests, K1 once per step or
-    request and no other kernel;
+    ``train_step`` calls and 8 ``eval_step`` requests, K6 three times and
+    K1 once per step or request and no other kernel;
 11. full_graph_inference_gat / full_graph_inference_gcn: as 6, for the
     trained GAT and GCN;
 12. full_graph_inference_host: ``full_graph_inference_host`` (features
@@ -253,12 +264,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    import numpy as np
     import torch.nn.functional as F
 
     t_script = time.perf_counter()
     from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
     from dist_gnn_tpu_torch.dataloading.seeds import SeedGenerator
-    from dist_gnn_tpu_torch.graph import HostGraph
+    from dist_gnn_tpu_torch.graph import INVALID_ID, HostGraph
     from dist_gnn_tpu_torch.kernels import build
     from dist_gnn_tpu_torch.models.gat import GAT
     from dist_gnn_tpu_torch.models.gcn import GCN
@@ -266,9 +278,9 @@ def main() -> int:
     from dist_gnn_tpu_torch.models import sage as sage_mod
     from dist_gnn_tpu_torch.models.sage import SAGE, contiguous_mean
     from dist_gnn_tpu_torch.ops import gat as gat_ops
-    from dist_gnn_tpu_torch.ops import gather, prng, spmm
+    from dist_gnn_tpu_torch.ops import gather, prng, sampling, spmm
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
-    from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean
+    from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_sampler
     from dist_gnn_tpu_torch.training import Trainer, masked_nll_loss
     from dist_gnn_tpu_torch.utils.timing import cuda_time_ms, profile_device
 
@@ -279,7 +291,8 @@ def main() -> int:
         hits = [v for k, v in kernels.items() if kernel_name in k]
         return sum(ms for ms, _ in hits) / sum(n for _, n in hits) if hits else None
 
-    counters = {"gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
+    counters = {"sample_uniform": sampling.sample_uniform,
+                "gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
                 "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose, "gather_mean_bwd": gather.gather_mean_bwd,
                 "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
 
@@ -349,6 +362,101 @@ def main() -> int:
           "block_shapes": [list(b.neigh_slots.shape) for b in blocks],
           "valid_edges": edges, "first_call_s": sample_s})
 
+    # K6 against its plain version on the card, bit for bit: the three hops
+    # of the main path (each hop's seeds are the frontier the hop before
+    # produced), without replacement on the request's keys and with
+    # replacement on [B, k] keys from Generator(2)
+    rgen = torch.Generator().manual_seed(2)
+    k6_hops = []
+    k6_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
+    for i, (blk, kk) in enumerate(zip(blocks, reversed(FAN_OUT))):
+        s_hop = blk.seeds
+        B = s_hop.shape[0]
+        hop = {"hop": i, "B": B, "k": kk}
+        for replace in (False, True):
+            key = prng.random_keys(rgen, (B, kk), cuda) if replace else hop_keys[i].to(cuda)
+            got = sampling.sample_uniform(graph, s_hop, kk, replace, key)
+            want = sampling.sample_uniform_plain(graph, s_hop, kk, replace, key)
+            torch.cuda.synchronize()
+            check(torch.equal(got.ids, want.ids) and torch.equal(got.mask, want.mask),
+                  f"K6 hop {i} replace={replace}: differs from sample_uniform_plain")
+            if replace:
+                hop["replace_valid_slots"] = int(got.mask.sum())
+                continue
+            # bound: the distinct 32-byte sectors of indices that the taken
+            # slots read (at the plain version's positions) and of indptr
+            # that the valid seeds' pairs read; every seed and key read
+            # once; ids and mask written once
+            pos, _ = sampling.plain_positions(graph, s_hop, kk, False, key)
+            idx_sectors = int(torch.unique((graph.indices.data_ptr() + 4 * pos[got.mask]) // 32).numel())
+            seeds_v = s_hop[s_hop != INVALID_ID].long()
+            esz = graph.indptr.element_size()
+            ptr_sectors = int(torch.unique(
+                (graph.indptr.data_ptr() + esz * torch.cat([seeds_v, seeds_v + 1])) // 32).numel())
+            nbytes = (idx_sectors + ptr_sectors) * 32 + B * (4 + 8) + B * kk * 5
+            hop.update({
+                "valid_slots": int(got.mask.sum()), "indices_sectors": idx_sectors,
+                "indptr_sectors": ptr_sectors, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "ms": cuda_time_ms(lambda: sampling.sample_uniform(graph, s_hop, kk, False, key)),
+                "device_ms": device_ms(lambda: sampling.sample_uniform(graph, s_hop, kk, False, key),
+                                       "sample_uniform_kernel"),
+                "plain_ms": cuda_time_ms(lambda: sampling.sample_uniform_plain(graph, s_hop, kk, False, key),
+                                         iters=3, warmup=1),
+            })
+            for key_ in k6_sum:
+                k6_sum[key_] += hop[key_] or 0.0
+        k6_hops.append(hop)
+    # rows of degree 0, 1, k, k + 1, 2^b, 2^b + 1 and a hub of 100,000, each
+    # seeded, among random rows and padded seeds, under int32 and int64
+    # indptr; an edgeless graph launches nothing
+    erng = np.random.default_rng(3)
+    ek = 5
+    degs = [0, 1, ek, ek + 1, 8, 9, 32, 33, 128, 129, 100_000] + list(erng.integers(0, 41, 500))
+    n_e = len(degs) + 20
+    e_dst = np.repeat(np.arange(len(degs)), degs)
+    ehg = HostGraph.from_coo(erng.integers(0, n_e, e_dst.shape[0]), e_dst, n_e)
+    e_seeds = np.concatenate([np.arange(len(degs)), erng.integers(0, n_e, 1500)]).astype(np.int32)
+    e_seeds[::7] = INVALID_ID
+    e_seeds_t = torch.from_numpy(e_seeds).to(cuda)
+    edge_rows = []
+    for indptr_dtype in (np.int32, np.int64):
+        eg = HostGraph(indptr=ehg.indptr.astype(indptr_dtype), indices=ehg.indices).to_device(cuda)
+        for replace in (False, True):
+            key = prng.random_keys(rgen, (e_seeds.shape[0], ek) if replace else (e_seeds.shape[0],), cuda)
+            got = sampling.sample_uniform(eg, e_seeds_t, ek, replace, key)
+            want = sampling.sample_uniform_plain(eg, e_seeds_t, ek, replace, key)
+            torch.cuda.synchronize()
+            check(torch.equal(got.ids, want.ids) and torch.equal(got.mask, want.mask),
+                  f"K6 edge rows, {indptr_dtype.__name__} indptr, replace={replace}: differs from plain")
+            edge_rows.append({"indptr": indptr_dtype.__name__, "replace": replace,
+                              "valid_slots": int(got.mask.sum())})
+    empty_g = HostGraph(indptr=np.zeros(11, np.int32), indices=np.zeros(0, np.int32)).to_device(cuda)
+    before = sampling.sample_uniform.launches
+    got = sampling.sample_uniform(empty_g, torch.arange(4, dtype=torch.int32, device=cuda), 3, False,
+                                  torch.zeros(4, dtype=torch.int64, device=cuda))
+    check(bool((got.ids == INVALID_ID).all()) and not bool(got.mask.any()), "K6 on an edgeless graph")
+    check(sampling.sample_uniform.launches == before, "K6 launched for an edgeless graph")
+
+    # one sample_blocks call: kernels, device ms, wall ms, event ms
+    sgen = torch.Generator(device=cuda).manual_seed(12)
+    cuda_keys = [k.to(cuda) for k in hop_keys]
+    sample_stage = {
+        "injected_keys": bench_sampler.time_group(
+            lambda: sample_blocks(graph, seeds, mask, FAN_OUT, False, cuda_keys, dedup_last=False),
+            iters=10, prof_iters=10),
+        "generator": bench_sampler.time_group(
+            lambda: sample_blocks(graph, seeds, mask, FAN_OUT, False, sgen, dedup_last=False),
+            iters=10, prof_iters=10),
+    }
+    k6 = {"name": "sample_uniform", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
+          "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:305",
+          "max_abs_err": 0.0, **k6_sum, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "kernel", "kernel": "K6 sample_uniform", "exact": True,
+          "times_are": "sums over the three hops of one request (replace=False)", "hops": k6_hops,
+          "edge_rows": edge_rows, "edgeless_graph_launches": 0,
+          "library": "none: no one PyTorch call samples a CSC graph",
+          "sample_blocks": sample_stage, **k6, **card})
+
     # ---- 4. K1, K2 and K3 against their plain versions --------------------
     safe = torch.where(blocks[-1].frontier_mask, blocks[-1].frontier, 0)
     L = safe.shape[0]
@@ -362,21 +470,41 @@ def main() -> int:
     odd_idx = torch.randint(0, 1000, (777,), device=cuda, dtype=torch.int32)
     check(torch.equal(gather.gather_rows(odd, odd_idx), odd[odd_idx.long()]), "K1 odd F")
     check(gather.gather_rows(features, safe[:0]).shape == (0, 100), "K1 empty idx")
-    row_bytes = 100 * features.element_size()
-    k1_bytes = int(torch.unique(safe).numel()) * row_bytes + L * 4 + L * row_bytes
+    # a table 4 bytes off 16-byte alignment (4-byte loads, 16-byte stores),
+    # one-byte rows of 13 bytes, a last run shorter than a warp's, ids
+    # outside the table (clamped)
+    base = torch.randn(5000 * 64 + 1, device=cuda)
+    k1_cases = [("f32_offset_4_bytes", base[1:].view(5000, 64)),
+                ("uint8_13_bytes", torch.randint(0, 255, (1000, 13), device=cuda, dtype=torch.uint8))]
+    for label, tab in k1_cases:
+        for n_idx in (1, 333, 1001):
+            idx = torch.randint(-3, tab.shape[0] + 3, (n_idx,), device=cuda, dtype=torch.int32)
+            check(torch.equal(gather.gather_rows(tab, idx), tab[idx.long().clamp(0, tab.shape[0] - 1)]),
+                  f"K1 {label}, L={n_idx}")
+    del base
+    # K1 beside K2 and index_select at the main path's shape and the gather
+    # bench's, in bf16 and f32: bench_gather_rows.measure checks each equal
+    # to table[idx] and times them in turns; bound = the distinct rows read
+    # once, the ids, the output written once
+    bgen = torch.Generator(device=cuda).manual_seed(7)
+    bench_bf16 = torch.randn((BENCH_N, BENCH_F), generator=bgen, device=cuda).to(torch.bfloat16)
+    bench_idx = torch.randint(0, BENCH_N, (BENCH_L,), generator=bgen, device=cuda, dtype=torch.int32)
+    gather_inputs = {"main_path_bf16": (features, safe), "main_path_f32": (features32, safe),
+                     "bench_bf16": (bench_bf16, bench_idx), "bench_f32": (bench_bf16.float(), bench_idx)}
+    gather_timed = {label: bench_gather_rows.measure(*ti) for label, ti in gather_inputs.items()}
+    main_k1 = gather_timed["main_path_bf16"]
     k1 = {
         "name": "gather_rows", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
         "replaces": "dist_gnn_tpu/ops/gather_pallas.py:111",
-        "max_abs_err": max_abs(out, ref),
-        "ms": cuda_time_ms(lambda: gather.gather_rows(features, safe)),
+        "max_abs_err": max_abs(out, ref), "ms": main_k1["k1"]["ms"],
         "plain_ms": cuda_time_ms(lambda: gather.gather_rows_plain(features, safe)),
-        "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": cuda_time_ms(lambda: torch.index_select(features, 0, safe)),
+        "bound_ms": main_k1["bound_ms"], "bound_by": "bytes", "library_ms": main_k1["index_select"]["ms"],
     }
     emit({"phase": "kernel", "kernel": "K1 gather_rows", "shape": [hg.num_nodes, 100, L],
-          "dtype": "bfloat16", "exact": True, "bytes": k1_bytes,
-          "device_ms": device_ms(lambda: gather.gather_rows(features, safe), "gather_rows_kernel"),
-          **k1, **card})
+          "dtype": "bfloat16", "exact": True, "bytes": main_k1["bytes"], "device_ms": main_k1["k1"]["device_ms"],
+          "library_is": "torch.index_select",
+          "shapes": {label: {"bound_ms": r["bound_ms"], "k1": r["k1"], "index_select": r["index_select"]}
+                     for label, r in gather_timed.items()}, **k1, **card})
 
     # K3 at the three layers of one request: layer l aggregates over the
     # block that reversed(blocks)[l] names, from an h of that block's
@@ -429,31 +557,20 @@ def main() -> int:
           "times_are": "sums over the three layers of one request", "layers": k3_layers,
           **k3, **card})
 
-    # K2 at the main path's shape (K1's) and the gather bench's, beside K1
-    # and index_select on the same inputs; bound = the distinct rows read
-    # once, the ids, the output written once
-    bgen = torch.Generator(device=cuda).manual_seed(7)
-    bench_bf16 = torch.randn((BENCH_N, BENCH_F), generator=bgen, device=cuda).to(torch.bfloat16)
-    bench_idx = torch.randint(0, BENCH_N, (BENCH_L,), generator=bgen, device=cuda, dtype=torch.int32)
+    # K2 at the same four shapes (measured with K1 above), with its plain
+    # version's time and rows_per_step 32 beside them
     k2_shapes = {}
-    for label, table, idx in (("main_path_bf16", features, safe), ("bench_bf16", bench_bf16, bench_idx),
-                              ("bench_f32", bench_bf16.float(), bench_idx)):
+    for label, (table, idx) in gather_inputs.items():
         got = gather.gather_rows_dma(table, idx)
         check(torch.equal(got, gather.gather_rows_dma_plain(table, idx)), f"K2 differs from table[idx] at {label}")
-        rb = table.shape[1] * table.element_size()
-        uniq = int(torch.unique(idx).numel())
-        nbytes = uniq * rb + idx.shape[0] * 4 + idx.shape[0] * rb
+        r = gather_timed[label]
         k2_shapes[label] = {
-            "N": table.shape[0], "F": table.shape[1], "L": idx.shape[0], "dtype": str(table.dtype),
-            "rows_per_step": 128, "vec_bytes": gather._vec_bytes(rb, table, got), "unique_rows": uniq,
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ms": cuda_time_ms(lambda: gather.gather_rows_dma(table, idx)),
-            "device_ms": device_ms(lambda: gather.gather_rows_dma(table, idx), "gather_rows_dma_kernel"),
+            **{key: r[key] for key in ("N", "F", "L", "dtype", "unique_rows", "bytes", "bound_ms")},
+            "rows_per_step": 128, "vec_bytes": gather._vec_bytes(r["F"] * table.element_size(), table, got),
+            "ms": r["k2"]["ms"], "device_ms": r["k2"]["device_ms"],
             "ms_rows_per_step_32": cuda_time_ms(lambda: gather.gather_rows_dma(table, idx, rows_per_step=32)),
             "plain_ms": cuda_time_ms(lambda: gather.gather_rows_dma_plain(table, idx)),
-            "library_ms": cuda_time_ms(lambda: torch.index_select(table, 0, idx)),
-            "k1_ms": cuda_time_ms(lambda: gather.gather_rows(table, idx)),
-            "k1_device_ms": device_ms(lambda: gather.gather_rows(table, idx), "gather_rows_kernel"),
+            "library_ms": r["index_select"]["ms"], "k1_ms": r["k1"]["ms"], "k1_device_ms": r["k1"]["device_ms"],
         }
         del got
     odd_got = gather.gather_rows_dma(odd, odd_idx)  # F = 37 bf16: 2-byte rows; L = 777, not a multiple of 128
@@ -468,7 +585,7 @@ def main() -> int:
         too_big = str(e)
     check(too_big is not None, "K2 with rows_per_step 512 on 512-byte rows must raise")
     check(gather.gather_rows_dma.launches == before, "K2 launched for an empty idx or an oversized B")
-    del bench_bf16, bench_idx
+    del bench_bf16, bench_idx, gather_inputs
     prim = k2_shapes["bench_bf16"]
     k2 = {"name": "gather_rows_dma", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
           "replaces": "dist_gnn_tpu/ops/gather_pallas.py:211", "max_abs_err": 0.0,
@@ -532,8 +649,9 @@ def main() -> int:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = read_counts()
-    want = {**dict.fromkeys(counters, 0), "gather_rows": N_REQUESTS, "gather_mean": 3 * N_REQUESTS}
-    check(launches == want, f"serving launches {launches}, expected 1 K1 and 3 K3 per request")
+    want = {**dict.fromkeys(counters, 0), "sample_uniform": 3 * N_REQUESTS, "gather_rows": N_REQUESTS,
+            "gather_mean": 3 * N_REQUESTS}
+    check(launches == want, f"serving launches {launches}, expected 3 K6, 1 K1 and 3 K3 per request")
     correct = sum(int(c) for c, _ in answers)
     answered = sum(int(n) for _, n in answers)
     check(answered == N_REQUESTS * BATCH, "every seed answered")
@@ -574,6 +692,7 @@ def main() -> int:
           "logits_rel_err_vs_plain": logits_err, "correct": correct, "answered": answered,
           "launches": launches, **request_breakdown(model, trainer), **card})
     k1["launches"] = launches["gather_rows"]
+    k6["launches"] = launches["sample_uniform"]
 
     # ---- 6. full-graph inference -----------------------------------------
     small, _ = make_synthetic_dataset(
@@ -737,6 +856,23 @@ def main() -> int:
     odd_m[5:, 0] = True
     _, _, t_diff, odd_errs = bwd_checks(odd_src, odd_d, odd_s, odd_m, "odd F")
     st_diff = max(st_diff, t_diff)
+    # a slot table above the 2^20 keys of one bitmap window: 70,000 rows x
+    # 16 slots naming 200,000 source rows with a power law (slot =
+    # cap * u^3), so the first rows are hubs named thousands of times
+    big_S, big_k, big_cap, big_F = 70_000, 16, 200_000, 64
+    u = torch.rand(big_S, big_k, device=cuda, generator=kgen)
+    big_s = torch.clamp((big_cap * u ** 3).long(), 0, big_cap - 1).to(torch.int32)
+    big_m = torch.rand(big_S, big_k, device=cuda, generator=kgen) < 0.9
+    big_named = torch.bincount(big_s[big_m].long(), minlength=big_cap)
+    check(big_S * big_k > 2**20 and int((big_named > 32).sum()) > 0,
+          "the large K3-bwd case needs more than 2^20 slots and hub rows")
+    big_h = torch.randn(big_cap, big_F, device=cuda, generator=kgen)
+    big_d = torch.randn(big_S, big_F, device=cuda, generator=kgen)
+    _, _, t_diff, big_errs = bwd_checks(big_h, big_d, big_s, big_m, "S*k above 2^20")
+    st_diff = max(st_diff, t_diff)
+    big_errs.update({"S": big_S, "k": big_k, "cap": big_cap, "F": big_F, "slots": big_S * big_k,
+                     "hub_rows": int((big_named > 32).sum()), "most_named": int(big_named.max())})
+    del u, big_s, big_m, big_named, big_h, big_d
     k3b = {
         "name": "gather_mean_bwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
         "replaces": "dist_gnn_tpu/ops/gather_pallas.py:279", "max_abs_err": k3b_err,
@@ -749,7 +885,8 @@ def main() -> int:
           "replaces_note": "the backward of K3; the JAX package differentiates its jnp mean "
                            "through XLA and has no Pallas backward",
           "times_are": "sums over SAGE layers 1 and 2 of one step, each call building its transpose",
-          "layers": k3b_layers, "odd_width": odd_errs, "per_step_k3": k3_timed["per_step"],
+          "layers": k3b_layers, "odd_width": odd_errs, "above_2_20_slots": big_errs,
+          "per_step_k3": k3_timed["per_step"],
           "library_is": "backward of F.embedding_bag(mode='mean')", **k3b, **card})
     emit({"phase": "kernel", "kernel": "slot_transpose", "exact": True,
           "times_are": "sums over SAGE layers 1 and 2 of one step", "layers": st_layers,
@@ -1043,9 +1180,18 @@ def main() -> int:
     sage32.load_state_dict(sage_train.state_dict())
     _, sage_launches = train_phase(
         "training_sage", sage_train,
-        {**dict.fromkeys(counters, 0), "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2,
-         "gather_mean_bwd": 2}, 20,
+        {**dict.fromkeys(counters, 0), "sample_uniform": 3, "gather_rows": 1, "gather_mean": 3,
+         "slot_transpose": 2, "gather_mean_bwd": 2}, 20,
         lambda *a: kernel_grad_check("training_sage", sage_train, sage32, *a))
+
+    # K1 or K2 for the trainer's gather, inside SAGE steps, in bf16 and f32:
+    # one timed batch and one profiled step each (bench_gather_rows' main
+    # runs the study over 8 batches)
+    in_step = {"bf16": bench_gather_rows.in_step(sage_train, graph, features, labels, train_batches[:2], 60, 1),
+               "f32": bench_gather_rows.in_step(sage32, graph, features32, labels, train_batches[:2], 61, 1)}
+    emit({"phase": "k1_or_k2_in_step", "rows": BATCH, "in_step": in_step,
+          "trainer_gather": "K2" if all(r["k2_faster"] for r in in_step.values()) else "K1", **card})
+
     # K3 three times per step, at layers 1 and 2 with the transpose the
     # backward reads
     k3["launches"] = sage_launches["gather_mean"]
@@ -1058,7 +1204,7 @@ def main() -> int:
     gat32.load_state_dict(gat_model.state_dict())
     gat_trainer, gat_launches = train_phase(
         "training_gat", gat_model,
-        {**dict.fromkeys(counters, 0), "gather_rows": 1, "gat_fwd": 3, "gat_bwd": 3}, 30,
+        {**dict.fromkeys(counters, 0), "sample_uniform": 3, "gather_rows": 1, "gat_fwd": 3, "gat_bwd": 3}, 30,
         lambda *a: kernel_grad_check("training_gat", gat_model, gat32, *a))
     k4["launches"] = gat_launches["gat_fwd"]
     k5["launches"] = gat_launches["gat_bwd"]
@@ -1082,7 +1228,8 @@ def main() -> int:
     torch.cuda.synchronize()
     g_serve_s = time.perf_counter() - t0
     g_launches = read_counts()
-    want = {**dict.fromkeys(counters, 0), "gather_rows": N_REQUESTS, "gat_fwd": 3 * N_REQUESTS}
+    want = {**dict.fromkeys(counters, 0), "sample_uniform": 3 * N_REQUESTS, "gather_rows": N_REQUESTS,
+            "gat_fwd": 3 * N_REQUESTS}
     check(g_launches == want, f"GAT serving launches {g_launches}, expected {want}")
     check(sum(int(n) for _, n in g_answers) == N_REQUESTS * BATCH, "every seed answered (GAT)")
     emit({"phase": "serving_gat", "requests": N_REQUESTS, "batch": BATCH,
@@ -1092,12 +1239,12 @@ def main() -> int:
           "correct": sum(int(c) for c, _ in g_answers), **card})
 
     # ---- 10. GCN: training and serving ------------------------------------
-    k1_only = {**dict.fromkeys(counters, 0), "gather_rows": 1}
+    gcn_counts = {**dict.fromkeys(counters, 0), "sample_uniform": 3, "gather_rows": 1}
     gcn_model = GCN(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
                     generator=torch.Generator().manual_seed(8), device=cuda)
     gcn32 = GCN(100, 256, meta["num_classes"], len(FAN_OUT), device=cuda)
     gcn32.load_state_dict(gcn_model.state_dict())
-    gcn_trainer, _ = train_phase("training_gcn", gcn_model, k1_only, 40,
+    gcn_trainer, _ = train_phase("training_gcn", gcn_model, gcn_counts, 40,
                                  lambda *a: cpu_grad_check("training_gcn", gcn32, *a))
 
     gcn_cpu = copy.deepcopy(gcn_model).to("cpu")
@@ -1118,7 +1265,7 @@ def main() -> int:
     torch.cuda.synchronize()
     c_serve_s = time.perf_counter() - t0
     c_launches = read_counts()
-    want = {k: v * N_REQUESTS for k, v in k1_only.items()}
+    want = {k: v * N_REQUESTS for k, v in gcn_counts.items()}
     check(c_launches == want, f"GCN serving launches {c_launches}, expected {want}")
     check(sum(int(n) for _, n in c_answers) == N_REQUESTS * BATCH, "every seed answered (GCN)")
     emit({"phase": "serving_gcn", "requests": N_REQUESTS, "batch": BATCH,
@@ -1183,7 +1330,7 @@ def main() -> int:
     # ---- 14. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k3b, k4, k5, st_k)]})
+    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,12 +10,22 @@
 //   table and int32 idx.  Replaces dist_gnn_tpu/ops/gather_pallas.py
 //   _gather_rows_chunk / _gather_rows_multi_chunk (kernels _gather_kernel,
 //   _gather_multi_kernel).  No arithmetic: bound by device-memory bytes,
-//   each distinct row read once plus the output written once.  Design: one
-//   warp per output row, lanes copy the row in the widest vector that
-//   divides the row and the base pointers (16 B for 512-byte rows, 8 B for
-//   the 200-byte rows of bf16 F=100, whose starts are only 8-byte aligned),
-//   so every row is one contiguous, coalesced warp access.  The TPU's F%128
-//   and SMEM chunk limits are gone.
+//   each distinct row read once plus the output written once.  Design: each
+//   warp copies a run of kRunRows consecutive output rows.  Its lanes read
+//   the run's ids in one coalesced load and share them by shuffles; the
+//   run's output is one contiguous span, which the lanes fill with stores
+//   of SV bytes (16 wherever the span's alignment allows: the main path's
+//   200-byte bf16 rows start only 8-byte aligned, but a run of 32 of them
+//   is 6,400 bytes, so each 16-byte store takes two 8-byte row loads), and
+//   each lane issues the loads of kRunBatch stores, which lie in several
+//   rows, before its first store, so many rows are in flight per lane and
+//   none waits on another's id.  The stores are streaming (st.global.cs):
+//   the output is read by the next kernel, not by this one, and should not
+//   evict from L2 the table rows the dedup-free last hop repeats.  The load
+//   width VEC and the store width SV are chosen here from the row size and
+//   the addresses; the run and batch sizes were among the fastest of those
+//   tried on an H100 at the main path's shape, in bf16 and f32 (PERF.md).
+//   The TPU's F%128 and SMEM chunk limits are gone.
 //
 // K3 dg_gather_mean: out[s] = sum_{valid j} h[slots[s,j]] / max(cnt_s, 1),
 //   rows with no valid slot give 0, no [S, k, F] intermediate.  Replaces
@@ -50,9 +60,9 @@
 //   slots take one warp each (the lanes rank the entries by shuffles);
 //   hub rows, which a power-law graph's sampled rows name hundreds of
 //   times, take one block each, which orders the list through a bitmap of
-//   the keys in shared memory and splits it over 32 warps, so no warp walks
-//   a hub's list alone.  The sum is the same bits on every run whenever the
-//   slot table has at most 2^20 entries.
+//   the keys in shared memory, one window of 2^20 keys at a time, and
+//   splits it over 32 warps, so no warp walks a hub's list alone.  The sum
+//   is the same bits on every run, at any slot-table size.
 //
 // K2 dg_gather_rows_dma: the same out[i] = table[idx[i]] as K1, by
 //   double-buffered row copies through shared memory.  Replaces
@@ -95,6 +105,10 @@ constexpr int kThreads = 256;           // 8 warps per block
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int64_t kMaxBlocks = 1 << 20;  // grid-stride beyond this
 
+constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
 __device__ __forceinline__ int64_t clamp_row(int64_t r, int64_t n) {
   return r < 0 ? 0 : (r >= n ? n - 1 : r);
 }
@@ -112,6 +126,15 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch casts
 }
 
+// The widest vector (16, 8, 4, 2 or 1 bytes, never below one element) whose
+// size divides `bytes` and both addresses, so no vector access is misaligned.
+int vec_for(const void* a, const void* b, int64_t bytes, int elem) {
+  const uint64_t bits = (uint64_t)(uintptr_t)a | (uint64_t)(uintptr_t)b | (uint64_t)bytes;
+  int v = 16;
+  while (v > elem && bits % v) v >>= 1;
+  return v;
+}
+
 int64_t grid_for(int64_t rows) {
   int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   return blocks < kMaxBlocks ? blocks : kMaxBlocks;
@@ -119,31 +142,93 @@ int64_t grid_for(int64_t rows) {
 
 // ---- K1 -------------------------------------------------------------------
 
-template <int VEC>
+constexpr int kRunRows = 32;  // output rows per warp run (at most 32: one id a lane)
+constexpr int kRunBatch = 4;  // stores whose loads a lane issues before storing
+
+template <int VEC, int SV>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const typename Raw<VEC>::T* __restrict__ table,
-                   const int32_t* __restrict__ idx,
-                   typename Raw<VEC>::T* __restrict__ out, int64_t n_rows,
-                   int64_t L, int vpr) {
+                   const int32_t* __restrict__ idx, unsigned char* __restrict__ out,
+                   int64_t n_rows, int64_t L, int vpr) {
+  using V = typename Raw<VEC>::T;
+  using W = typename Raw<SV>::T;
+  constexpr int P = SV / VEC;  // loads per store
   const int lane = threadIdx.x & 31;
+  const int64_t row_bytes = (int64_t)vpr * VEC;
   const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       i < L; i += n_warps) {
-    const int64_t r = clamp_row(idx[i], n_rows);
-    const typename Raw<VEC>::T* src = table + r * vpr;
-    typename Raw<VEC>::T* dst = out + i * vpr;
-    for (int v = lane; v < vpr; v += 32) dst[v] = src[v];
+  for (int64_t run = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       run * kRunRows < L; run += n_warps) {
+    const int64_t i0 = run * kRunRows;
+    const int nr = (int)min64(kRunRows, L - i0);
+    const int my = lane < nr ? (int)clamp_row(idx[i0 + lane], n_rows) : 0;
+    const int units = nr * vpr;    // VEC-byte pieces of the span
+    const int stores = units / P;  // whole SV-byte stores
+    unsigned char* span = out + i0 * row_bytes;  // SV-aligned: kRunRows * row_bytes % SV == 0
+    for (int s0 = 0; s0 < stores; s0 += 32 * kRunBatch) {
+      V raw[kRunBatch][P];
+#pragma unroll
+      for (int u = 0; u < kRunBatch; ++u) {
+        const int st = s0 + u * 32 + lane;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int unit = st * P + p;
+          const int row = unit / vpr;
+          const int r = __shfl_sync(kFull, my, row & 31);  // every lane shuffles
+          if (st < stores) raw[u][p] = table[(int64_t)r * vpr + (unit - row * vpr)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRunBatch; ++u) {
+        const int st = s0 + u * 32 + lane;
+        if (st < stores) {
+          union {
+            W w;
+            V v[P];
+          } pack;
+#pragma unroll
+          for (int p = 0; p < P; ++p) pack.v[p] = raw[u][p];
+          __stcs(reinterpret_cast<W*>(span) + st, pack.w);  // st.global.cs
+        }
+      }
+    }
+    // a short last run may end inside a store: its last pieces one by one
+    for (int unit = stores * P + lane; unit < units; unit += 32) {
+      const int row = unit / vpr;
+      const int64_t r = clamp_row(idx[i0 + row], n_rows);
+      reinterpret_cast<V*>(span)[unit] = table[r * vpr + (unit - row * vpr)];
+    }
   }
 }
 
+template <int VEC, int SV>
+int launch_gather_rows(const void* table, const int32_t* idx, void* out, int64_t n_rows,
+                       int64_t L, int64_t row_bytes, cudaStream_t stream) {
+  const int64_t runs = (L + kRunRows - 1) / kRunRows;
+  gather_rows_kernel<VEC, SV><<<(unsigned)grid_for(runs), kThreads, 0, stream>>>(
+      static_cast<const typename Raw<VEC>::T*>(table), idx, static_cast<unsigned char*>(out),
+      n_rows, L, (int)(row_bytes / VEC));
+  return (int)cudaGetLastError();
+}
+
+// Store widths up to 4 loads (and 16 bytes) wide, so a lane's batch stays
+// in 32 registers whatever the load width.
 template <int VEC>
-void launch_gather_rows(const void* table, const int32_t* idx, void* out,
-                        int64_t n_rows, int64_t L, int64_t row_bytes,
-                        cudaStream_t stream) {
-  using V = typename Raw<VEC>::T;
-  gather_rows_kernel<VEC><<<(unsigned)grid_for(L), kThreads, 0, stream>>>(
-      static_cast<const V*>(table), idx, static_cast<V*>(out), n_rows, L,
-      (int)(row_bytes / VEC));
+int dispatch_gather_rows(int sv, const void* table, const int32_t* idx, void* out, int64_t n_rows,
+                         int64_t L, int64_t row_bytes, cudaStream_t stream) {
+  constexpr int kMaxSV = VEC * 4 < 16 ? VEC * 4 : 16;
+  if (sv > kMaxSV) sv = kMaxSV;
+  switch (sv / VEC) {
+    case 1: return launch_gather_rows<VEC, VEC>(table, idx, out, n_rows, L, row_bytes, stream);
+    case 2:
+      if constexpr (VEC * 2 <= 16)
+        return launch_gather_rows<VEC, VEC * 2>(table, idx, out, n_rows, L, row_bytes, stream);
+      return (int)cudaErrorInvalidValue;
+    case 4:
+      if constexpr (VEC * 4 <= 16)
+        return launch_gather_rows<VEC, VEC * 4>(table, idx, out, n_rows, L, row_bytes, stream);
+      return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---- K2 -------------------------------------------------------------------
@@ -261,19 +346,7 @@ int launch_gather_rows_dma(const void* table, const int32_t* idx, void* out,
 
 // ---- K3 -------------------------------------------------------------------
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSlotBatch = 8;   // row loads a lane keeps in flight
-
-__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
-// The widest vector (16, 8, 4 or 2 bytes, never below one element) whose
-// size divides `bytes` and both addresses, so no vector access is misaligned.
-int vec_for(const void* a, const void* b, int64_t bytes, int elem) {
-  const uint64_t bits = (uint64_t)(uintptr_t)a | (uint64_t)(uintptr_t)b | (uint64_t)bytes;
-  int v = 16;
-  while (v > elem && bits % v) v >>= 1;
-  return v;
-}
 
 // The slot form: one warp per destination row.  The lanes read the row's
 // slots and mask side by side (lane j: slot j), a ballot gives the valid
@@ -382,7 +455,8 @@ constexpr int kLightBatch = 4;  // row loads a lane of the light kernel keeps in
 struct TransposeWs {
   int32_t* offsets;      // [cap + 1]: row r's list is entries[offsets[r], offsets[r + 1])
   int32_t* entries;      // [n]: flat slots s*k + j, valid ones only, by row
-  float* entry_den;      // [n]: the divisor of each entry's row s, beside entries
+  float* entry_den;      // [n]: the divisor of each entry's row s, beside entries (a hub
+                         // row's span: the backward's ordered list, as int32)
   float* den;            // [S]: max(cnt_s, 1), the mean's divisor of row s
   int32_t* counts;       // [cap] per-row counts, then the scan's ticket [1], then n_heavy [1]
   int32_t* n_heavy;      // rows whose list is longer than kLightMax
@@ -587,20 +661,26 @@ gather_mean_bwd_kernel(const T* __restrict__ d_out, const int32_t* __restrict__ 
 }
 
 constexpr int kHeavyThreads = 1024;  // 32 warps
-constexpr int kHeavyWords = 32768;   // bitmap words: keys S*k up to 2^20 are put in order
+constexpr int kHeavyWords = 32768;   // bitmap words: one window of 2^20 keys
+constexpr int64_t kWindowKeys = (int64_t)kHeavyWords * 32;
 
 // Rows with longer lists (hubs: a node that many sampled rows name): one
-// block a row, persistent blocks walking the heavy rows.  The block puts
-// the row's list in increasing order in place (a bitmap of the S*k keys in
-// shared memory, then a block-wide scan of its words' bit counts), then its
-// 32 warps sum contiguous runs of the ordered list in f32, kSlotBatch rows
-// in flight a lane (lanes 0..7 read the batch's entries and divisors), and
-// the runs' sums are added in warp order and the row written once.  With
-// S*k above 2^20 the list is summed in the fill's order.
+// block a row, persistent blocks walking the heavy rows.  The block writes
+// the row's list in increasing order into sorted_entries, the row's span of
+// the entry divisors, which only the light kernel's rows read: window by
+// window of kWindowKeys keys, it marks the window's keys in a bitmap in shared
+// memory, then a block-wide scan of its words' bit counts places them after
+// the earlier windows' (one window while S*k <= 2^20; above, one pass over
+// the list per window).  Its 32 warps then sum contiguous runs of the
+// ordered list in f32, kSlotBatch rows in flight a lane (lanes 0..7 read
+// the batch's entries and divisors), and the runs' sums are added in warp
+// order and the row written once.  The list itself is left as the fill
+// wrote it, so a second backward over the same transpose sorts it again.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kHeavyThreads)
 gather_mean_bwd_heavy_kernel(const T* __restrict__ d_out, const int32_t* __restrict__ offsets,
-                             int32_t* entries, const float* __restrict__ den_of,
+                             const int32_t* __restrict__ entries, int32_t* sorted_entries,
+                             const float* __restrict__ den_of,
                              const int32_t* __restrict__ heavy_rows,
                              const int32_t* __restrict__ n_heavy, T* __restrict__ d_h,
                              int64_t n_keys, int k, int F) {
@@ -609,8 +689,7 @@ gather_mean_bwd_heavy_kernel(const T* __restrict__ d_out, const int32_t* __restr
   extern __shared__ unsigned sm_bits[];  // [words], then [32 warps][32 lanes][E] partial sums
   __shared__ int32_t warp_total[32];
   const int64_t words64 = (n_keys + 31) / 32;
-  const bool order = words64 <= kHeavyWords;
-  const int words = order ? (int)words64 : 0;
+  const int words = (int)min64(words64, kHeavyWords);
   float* sm_part = reinterpret_cast<float*>(sm_bits + words);
   const int nvec = F / E;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -619,25 +698,30 @@ gather_mean_bwd_heavy_kernel(const T* __restrict__ d_out, const int32_t* __restr
     const int64_t r = heavy_rows[i];
     const int b = offsets[r];
     const int n = offsets[r + 1] - b;
-    int32_t* list = entries + b;
-    if (order) {
-      for (int t = threadIdx.x; t < words; t += kHeavyThreads) sm_bits[t] = 0u;
+    const int32_t* unordered = entries + b;
+    int32_t* list = sorted_entries + b;
+    int placed = 0;  // keys of the earlier windows
+    for (int64_t w0 = 0; w0 < n_keys; w0 += kWindowKeys) {
+      const int w_words = (int)min64((n_keys - w0 + 31) / 32, kHeavyWords);
+      for (int t = threadIdx.x; t < w_words; t += kHeavyThreads) sm_bits[t] = 0u;
       __syncthreads();
       for (int t = threadIdx.x; t < n; t += kHeavyThreads) {
-        const int e = list[t];
-        atomicOr(sm_bits + (e >> 5), 1u << (e & 31));
+        const int64_t e = unordered[t] - w0;
+        if (e >= 0 && e < kWindowKeys) atomicOr(sm_bits + (e >> 5), 1u << (e & 31));
       }
-      __syncthreads();  // every key read before any is written back
-      const int per = (words + kHeavyThreads - 1) / kHeavyThreads;
-      const int lo = threadIdx.x * per < words ? threadIdx.x * per : words;
-      const int hi = lo + per < words ? lo + per : words;
+      __syncthreads();
+      const int per = (w_words + kHeavyThreads - 1) / kHeavyThreads;
+      const int lo = threadIdx.x * per < w_words ? threadIdx.x * per : w_words;
+      const int hi = lo + per < w_words ? lo + per : w_words;
       int own = 0;
       for (int t = lo; t < hi; ++t) own += __popc(sm_bits[t]);
       int32_t total;
-      int pos = block_exclusive_scan(own, warp_total, &total);
+      int pos = placed + block_exclusive_scan(own, warp_total, &total);
       for (int t = lo; t < hi; ++t)
-        for (unsigned m = sm_bits[t]; m; m &= m - 1) list[pos++] = t * 32 + __ffs(m) - 1;
-      __syncthreads();  // the ordered list is visible to the block
+        for (unsigned m = sm_bits[t]; m; m &= m - 1)
+          list[pos++] = (int32_t)(w0 + t * 32 + __ffs(m) - 1);
+      placed += total;
+      __syncthreads();  // the bitmap is free; the ordered keys are visible to the block
     }
     const int run = (n + 31) / 32;
     const int lo = w * run < n ? w * run : n, hi = lo + run < n ? lo + run : n;
@@ -700,7 +784,7 @@ int launch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64_t
   constexpr int E = VEC / (int)sizeof(T);
   const int64_t words = (n_keys + 31) / 32;
   const size_t part = 32 * 32 * E * sizeof(float);
-  const size_t smem = (words <= kHeavyWords ? (size_t)words * sizeof(unsigned) : 0) + part;
+  const size_t smem = (size_t)min64(words, kHeavyWords) * sizeof(unsigned) + part;
   auto heavy = gather_mean_bwd_heavy_kernel<T, VEC>;
   static int n_sm = 0;  // set once: the SMs of the first device this library launches on
   if (n_sm == 0) {
@@ -716,7 +800,8 @@ int launch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64_t
       static_cast<const T*>(d_out), tw.offsets, tw.entries, tw.entry_den, static_cast<T*>(d_h), cap, k,
       F);
   heavy<<<(unsigned)n_sm, kHeavyThreads, smem, stream>>>(
-      static_cast<const T*>(d_out), tw.offsets, tw.entries, tw.den, tw.heavy_rows, tw.n_heavy,
+      static_cast<const T*>(d_out), tw.offsets, tw.entries,
+      reinterpret_cast<int32_t*>(tw.entry_den), tw.den, tw.heavy_rows, tw.n_heavy,
       static_cast<T*>(d_h), n_keys, k, F);
   return (int)cudaGetLastError();
 }
@@ -752,24 +837,23 @@ int dispatch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64
 
 extern "C" {
 
-// K1.  row_bytes = F * itemsize; vec_bytes in {16, 8, 4, 2, 1} divides
-// row_bytes and the alignment of table and out.  L may be 0.
+// K1.  row_bytes = F * itemsize.  The load width (16, 8, 4, 2 or 1 bytes)
+// divides row_bytes and both addresses; the store width is a multiple of it
+// that divides a run's span and out's address.  L may be 0.
 int dg_gather_rows(const void* table, const int32_t* idx, void* out,
-                   int64_t n_rows, int64_t L, int64_t row_bytes, int vec_bytes,
-                   void* stream) {
+                   int64_t n_rows, int64_t L, int64_t row_bytes, void* stream) {
   if (L == 0) return 0;
-  if (n_rows <= 0 || row_bytes <= 0 || row_bytes % vec_bytes != 0)
-    return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || row_bytes <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec_bytes) {
-    case 16: launch_gather_rows<16>(table, idx, out, n_rows, L, row_bytes, s); break;
-    case 8: launch_gather_rows<8>(table, idx, out, n_rows, L, row_bytes, s); break;
-    case 4: launch_gather_rows<4>(table, idx, out, n_rows, L, row_bytes, s); break;
-    case 2: launch_gather_rows<2>(table, idx, out, n_rows, L, row_bytes, s); break;
-    case 1: launch_gather_rows<1>(table, idx, out, n_rows, L, row_bytes, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  const int vec = vec_for(table, out, row_bytes, 1);
+  const int sv = vec_for(out, out, kRunRows * row_bytes, 1);  // a multiple of vec
+  switch (vec) {
+    case 16: return dispatch_gather_rows<16>(sv, table, idx, out, n_rows, L, row_bytes, s);
+    case 8: return dispatch_gather_rows<8>(sv, table, idx, out, n_rows, L, row_bytes, s);
+    case 4: return dispatch_gather_rows<4>(sv, table, idx, out, n_rows, L, row_bytes, s);
+    case 2: return dispatch_gather_rows<2>(sv, table, idx, out, n_rows, L, row_bytes, s);
+    default: return dispatch_gather_rows<1>(sv, table, idx, out, n_rows, L, row_bytes, s);
   }
-  return (int)cudaGetLastError();
 }
 
 // K2.  As K1, plus B = rows per stage (two stages of B * row_bytes in

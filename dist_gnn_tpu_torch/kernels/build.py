@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gather", "gat")  # csrc/<name>.cu, one library each
+SOURCES = ("gather", "gat", "sampling")  # csrc/<name>.cu, one library each
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

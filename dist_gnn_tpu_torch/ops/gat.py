@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dist_gnn_tpu_torch.kernels import build
-from dist_gnn_tpu_torch.ops.gather import _check_launch, _require, _stream
+from dist_gnn_tpu_torch.kernels.launch import check_launch, require, stream_of
 
 # The kernels' own envelope (csrc/gat.cu): at most 32 slots and 8 heads per
 # row, E at most 1024, and a block's tiles must fit its shared memory.
@@ -139,9 +139,9 @@ def gat_plan(kernel: str, K: int, S: int, E: int, H: int, D: int, dtype: torch.d
     f32 keeps the exact-FMA kernels: up to 16 rows whose scratch fits 96
     KB, all heads.  Raises ``ValueError`` outside the envelope or when no
     tile fits."""
-    _require(kernel in ("fwd", "bwd"), f"kernel must be 'fwd' or 'bwd', not {kernel!r}")
-    _require(dtype in _DTYPE_CODES, f"dtype {dtype} is not float32 or bfloat16")
-    _require(S >= 1 and D >= 1 and fits_kernels(K, E, H),
+    require(kernel in ("fwd", "bwd"), f"kernel must be 'fwd' or 'bwd', not {kernel!r}")
+    require(dtype in _DTYPE_CODES, f"dtype {dtype} is not float32 or bfloat16")
+    require(S >= 1 and D >= 1 and fits_kernels(K, E, H),
              f"K={K}, S={S}, E={E}, H={H}, D={D} is outside the GAT kernels' envelope")
     splits, s_chunk = _dw_split(S, E, H, D, num_sms) if kernel == "bwd" else (0, 0)
 
@@ -156,7 +156,7 @@ def gat_plan(kernel: str, K: int, S: int, E: int, H: int, D: int, dtype: torch.d
     if dtype == torch.float32:
         row = (K * H + H * E) if kernel == "fwd" else (3 * K * H + H * D + H * E)
         R = min(_MAX_ROWS_F32, _F32_BUDGET // (row * 4)) or (1 if row * 4 <= SMEM_BLOCK_MAX else 0)
-        _require(R > 0, f"one row's f32 scratch ({row * 4} B) exceeds {SMEM_BLOCK_MAX} B")
+        require(R > 0, f"one row's f32 scratch ({row * 4} B) exceeds {SMEM_BLOCK_MAX} B")
         return made(R, H, E, D, R * row * 4, fit(R * row * 4, _WARPS))
 
     e_pad, d_pad = -(-E // 16) * 16, -(-D // 16) * 16
@@ -193,7 +193,7 @@ def gat_plan(kernel: str, K: int, S: int, E: int, H: int, D: int, dtype: torch.d
             score = per_sm * (work + _BLOCK_COST) / (min(bps, per_sm) / 2)
             if best is None or score < best[0]:
                 best = (score, made(R, hc, e_pad, d_pad, smem, bps, ks, slots))
-    _require(best is not None, f"no {kernel} tile fits shared memory at E={E}, H={H}, D={D}, K={K}")
+    require(best is not None, f"no {kernel} tile fits shared memory at E={E}, H={H}, D={D}, K={K}")
     return best[1]
 
 
@@ -291,26 +291,26 @@ def gat_bwd_plain(
 
 
 def _check_common(x_n, el, er3, mask_f, w) -> Tuple[int, int, int, int, int]:
-    _require(
+    require(
         all(t.is_cuda and t.device == x_n.device for t in (x_n, el, er3, mask_f, w)),
         "x_n, el, er3, mask_f and w must share one CUDA device",
     )
-    _require(x_n.dtype in _DTYPE_CODES, f"x_n dtype {x_n.dtype} is not float32 or bfloat16")
-    _require(w.dtype == x_n.dtype, f"w dtype {w.dtype} differs from x_n's {x_n.dtype}")
-    _require(
+    require(x_n.dtype in _DTYPE_CODES, f"x_n dtype {x_n.dtype} is not float32 or bfloat16")
+    require(w.dtype == x_n.dtype, f"w dtype {w.dtype} differs from x_n's {x_n.dtype}")
+    require(
         el.dtype == er3.dtype == mask_f.dtype == torch.float32,
         "el, er3 and mask_f must be float32",
     )
-    _require(x_n.dim() == 3, "x_n must be [K, S, E]")
+    require(x_n.dim() == 3, "x_n must be [K, S, E]")
     K, S, E = x_n.shape
-    _require(el.dim() == 2 and el.shape[0] == S, "el must be [S, H]")
+    require(el.dim() == 2 and el.shape[0] == S, "el must be [S, H]")
     H = el.shape[1]
-    _require(er3.shape == (K, S, H), "er3 must be [K, S, H]")
-    _require(mask_f.shape == (S, K), "mask_f must be [S, K]")
-    _require(w.dim() == 2 and w.shape[0] == E and H > 0 and w.shape[1] % H == 0, "w must be [E, H*D]")
-    _require(fits_kernels(K, E, H), f"K={K}, E={E}, H={H} is outside the GAT kernels' envelope")
+    require(er3.shape == (K, S, H), "er3 must be [K, S, H]")
+    require(mask_f.shape == (S, K), "mask_f must be [S, K]")
+    require(w.dim() == 2 and w.shape[0] == E and H > 0 and w.shape[1] % H == 0, "w must be [E, H*D]")
+    require(fits_kernels(K, E, H), f"K={K}, E={E}, H={H} is outside the GAT kernels' envelope")
     for name, t in (("x_n", x_n), ("el", el), ("er3", er3), ("mask_f", mask_f), ("w", w)):
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+        require(t.is_contiguous(), f"{name} must be contiguous")
     return K, S, E, H, w.shape[1] // H
 
 
@@ -328,9 +328,9 @@ def gat_fwd(x_n, el, er3, mask_f, w, slope: float) -> torch.Tensor:
         x_n.data_ptr(), el.data_ptr(), er3.data_ptr(), mask_f.data_ptr(), w.data_ptr(),
         out.data_ptr(), K, S, E, H, D, float(slope), _DTYPE_CODES[x_n.dtype],
         plan.rows, plan.heads_per_block, plan.e_pad, plan.d_pad, plan.w_rows, plan.smem_bytes, *plan.grid,
-        _stream(x_n),
+        stream_of(x_n),
     )
-    _check_launch(rc, "gat_fwd")
+    check_launch(rc, "gat_fwd")
     gat_fwd.launches += 1
     return out
 
@@ -348,7 +348,7 @@ def gat_bwd(x_n, el, er3, mask_f, w, g, slope: float, need_dx: bool):
     if x_n.device.type == "cpu":
         return gat_bwd_plain(x_n, el, er3, mask_f, w, g, slope, need_dx)
     K, S, E, H, D = _check_common(x_n, el, er3, mask_f, w)
-    _require(
+    require(
         g.device == x_n.device and g.dtype == x_n.dtype and g.shape == (S, H * D) and g.is_contiguous(),
         "g must be a contiguous [S, H*D] tensor like the forward's output",
     )
@@ -369,9 +369,9 @@ def gat_bwd(x_n, el, er3, mask_f, w, g, slope: float, need_dx: bool):
         dxn.data_ptr() if need_dx else None, aggs.data_ptr(),
         K, S, E, H, D, float(slope), _DTYPE_CODES[dt],
         plan.rows, plan.d_pad, plan.dal_slots, plan.smem_bytes, plan.grid[0], plan.dw_splits, plan.dw_s_chunk,
-        _stream(x_n),
+        stream_of(x_n),
     )
-    _check_launch(rc, "gat_bwd")
+    check_launch(rc, "gat_bwd")
     gat_bwd.launches += 1
     return dw, d_el, d_er3, dxn
 

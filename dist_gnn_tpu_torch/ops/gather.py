@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dist_gnn_tpu_torch.kernels import build
+from dist_gnn_tpu_torch.kernels.launch import check_launch, require, stream_of
 from dist_gnn_tpu_torch.ops import spmm
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,7 +41,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("gather")
     if not getattr(lib, "_argtypes_set", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.dg_gather_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
+        lib.dg_gather_rows.argtypes = [p, p, p, i64, i64, i64, p]
         lib.dg_gather_rows.restype = i32
         lib.dg_gather_rows_dma.argtypes = [p, p, p, i64, i64, i64, i32, i32, p]
         lib.dg_gather_rows_dma.restype = i32
@@ -65,28 +66,6 @@ def _vec_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
     return vec
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s device, which must be the current
-    device: the kernels launch there.  Takes the raw forms of
-    ``torch.cuda.current_device()`` and ``current_stream().cuda_stream``,
-    which a CUDA build of PyTorch has and which skip the lazy-init check and
-    building a Stream object (0.2 against 7.7 µs a call, PERF.md)."""
-    index = t.get_device()
-    if index != torch._C._cuda_getDevice():
-        raise ValueError(f"{t.device} is not the current CUDA device")
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-def _check_launch(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of K1 and of K2: ``table[idx]``."""
     return table[idx.long()]
@@ -95,14 +74,14 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _gather_out(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Check K1's and K2's CUDA arguments and return their empty [L, F]
     output; a non-empty output needs a non-empty table."""
-    _require(table.is_cuda and idx.device == table.device, "table and idx must share one CUDA device")
-    _require(table.dim() == 2 and table.is_contiguous(), "table must be a contiguous [N, F] tensor")
-    _require(
+    require(table.is_cuda and idx.device == table.device, "table and idx must share one CUDA device")
+    require(table.dim() == 2 and table.is_contiguous(), "table must be a contiguous [N, F] tensor")
+    require(
         idx.dim() == 1 and idx.dtype == torch.int32 and idx.is_contiguous(),
         "idx must be a contiguous 1-D int32 tensor",
     )
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
-    _require(out.numel() == 0 or table.shape[0] > 0, "cannot gather from an empty table")
+    require(out.numel() == 0 or table.shape[0] > 0, "cannot gather from an empty table")
     return out
 
 
@@ -111,20 +90,19 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     table [N, F] of any F and dtype, idx [L] int32 in [0, N) (the caller
     clips; the kernel clamps so a bad id cannot read outside the table).
-    An empty idx returns [0, F] without a launch.  Outputs are exact."""
+    An empty idx returns [0, F] without a launch.  Outputs are exact.  The
+    kernel picks its load and store widths from F and the addresses."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     out = _gather_out(table, idx)
     if out.numel() == 0:
         return out
     N, F = table.shape
-    L = idx.shape[0]
-    row_bytes = F * table.element_size()
     rc = _lib().dg_gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, L, row_bytes,
-        _vec_bytes(row_bytes, table, out), _stream(table),
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, idx.shape[0], F * table.element_size(),
+        stream_of(table),
     )
-    _check_launch(rc, "gather_rows")
+    check_launch(rc, "gather_rows")
     gather_rows.launches += 1
     return out
 
@@ -145,7 +123,7 @@ def smem_optin_bytes(device: torch.device) -> int:
     """The dynamic shared memory a block may opt in to on a CUDA device
     (``cudaDevAttrMaxSharedMemoryPerBlockOptin``; 232448 bytes on an
     H100)."""
-    _require(device.type == "cuda", f"{device} has no CUDA shared memory")
+    require(device.type == "cuda", f"{device} has no CUDA shared memory")
     index = torch.cuda.current_device() if device.index is None else device.index
     limit = _lib().dg_smem_optin_bytes(index)
     if limit < 0:
@@ -163,7 +141,7 @@ def gather_rows_dma(table: torch.Tensor, idx: torch.Tensor, rows_per_step: int =
     outputs are exact.  Raises ``ValueError`` before any launch when
     ``rows_per_step`` < 1, or when the two stages
     (:func:`dma_stage_bytes`) exceed :func:`smem_optin_bytes`."""
-    _require(rows_per_step >= 1, f"rows_per_step must be at least 1, got {rows_per_step}")
+    require(rows_per_step >= 1, f"rows_per_step must be at least 1, got {rows_per_step}")
     if table.device.type == "cpu":
         return gather_rows_dma_plain(table, idx)
     out = _gather_out(table, idx)
@@ -173,16 +151,16 @@ def gather_rows_dma(table: torch.Tensor, idx: torch.Tensor, rows_per_step: int =
     L = idx.shape[0]
     row_bytes = F * table.element_size()
     need, limit = dma_stage_bytes(row_bytes, rows_per_step), smem_optin_bytes(table.device)
-    _require(
+    require(
         need <= limit,
         f"rows_per_step={rows_per_step}: two stages of {rows_per_step} x {row_bytes} B rows "
         f"need {need} B of shared memory, above the {limit} B a block may opt in to",
     )
     rc = _lib().dg_gather_rows_dma(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, L, row_bytes,
-        _vec_bytes(row_bytes, table, out), rows_per_step, _stream(table),
+        _vec_bytes(row_bytes, table, out), rows_per_step, stream_of(table),
     )
-    _check_launch(rc, "gather_rows_dma")
+    check_launch(rc, "gather_rows_dma")
     gather_rows_dma.launches += 1
     return out
 
@@ -208,11 +186,11 @@ def _check_slots(slots: torch.Tensor, mask: torch.Tensor, index: int) -> None:
     index -1."""
     if slots.get_device() != index or mask.get_device() != index:
         raise ValueError(f"slots and mask must lie on CUDA device {index}")
-    _require(
+    require(
         slots.dtype == torch.int32 and slots.dim() == 2 and slots.is_contiguous(),
         "slots must be a contiguous [S, k] int32 tensor",
     )
-    _require(
+    require(
         mask.dtype == torch.bool and mask.shape == slots.shape and mask.is_contiguous(),
         "mask must be a contiguous bool tensor shaped like slots",
     )
@@ -239,9 +217,9 @@ def _launch_gather_mean(
     out = h_src.new_empty((S, F))
     rc = _lib().dg_gather_mean(
         h_src.data_ptr(), slots.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        cap, S, k, F, _DTYPE_CODES[h_src.dtype], None if ws is None else ws.data_ptr(), _stream(h_src),
+        cap, S, k, F, _DTYPE_CODES[h_src.dtype], None if ws is None else ws.data_ptr(), stream_of(h_src),
     )
-    _check_launch(rc, "gather_mean")
+    check_launch(rc, "gather_mean")
     gather_mean.launches += 1
     if ws is not None:
         slot_transpose.launches += 1
@@ -285,7 +263,7 @@ def _new_ws(slots: torch.Tensor, cap: int) -> torch.Tensor:
     their rows' divisors [S*k], each row's divisor [S], then the kernels'
     scratch."""
     S, k = slots.shape
-    _require(S * k < 2**31, "the slot table exceeds the transpose's int32 indices")
+    require(S * k < 2**31, "the slot table exceeds the transpose's int32 indices")
     return slots.new_empty(cap + 1 + 2 * S * k + S + 4 * (cap + 1))
 
 
@@ -295,8 +273,8 @@ def _build_transpose(slots: torch.Tensor, mask: torch.Tensor, cap: int, ws: torc
         ws.zero_()
         return ws
     S, k = slots.shape
-    rc = _lib().dg_slot_transpose(slots.data_ptr(), mask.data_ptr(), cap, S, k, ws.data_ptr(), _stream(slots))
-    _check_launch(rc, "slot_transpose")
+    rc = _lib().dg_slot_transpose(slots.data_ptr(), mask.data_ptr(), cap, S, k, ws.data_ptr(), stream_of(slots))
+    check_launch(rc, "slot_transpose")
     slot_transpose.launches += 1
     return ws
 
@@ -309,7 +287,7 @@ def slot_transpose(slots: torch.Tensor, mask: torch.Tensor, cap: int) -> SlotTra
     reads); offsets equal the plain version's."""
     if slots.device.type == "cpu":
         return slot_transpose_plain(slots, mask, cap)
-    _require(slots.is_cuda, "slots must lie on a CUDA device")
+    require(slots.is_cuda, "slots must lie on a CUDA device")
     _check_slots(slots, mask, slots.get_device())
     return _transpose_view(_build_transpose(slots, mask, cap, _new_ws(slots, cap)), cap, slots.numel())
 
@@ -361,9 +339,9 @@ def _launch_gather_mean_bwd(d_out: torch.Tensor, mask: torch.Tensor, ws: torch.T
         return d_h
     rc = _lib().dg_gather_mean_bwd(
         d_out.data_ptr(), ws.data_ptr(), d_h.data_ptr(),
-        cap, mask.shape[0], mask.shape[1], F, _DTYPE_CODES[d_out.dtype], _stream(d_out),
+        cap, mask.shape[0], mask.shape[1], F, _DTYPE_CODES[d_out.dtype], stream_of(d_out),
     )
-    _check_launch(rc, "gather_mean_bwd")
+    check_launch(rc, "gather_mean_bwd")
     gather_mean_bwd.launches += 1
     return d_h
 
@@ -371,9 +349,9 @@ def _launch_gather_mean_bwd(d_out: torch.Tensor, mask: torch.Tensor, ws: torch.T
 def _check_d_out(d_out: torch.Tensor, mask: torch.Tensor) -> None:
     """Raise ``ValueError`` unless d_out suits the backward of a forward
     whose mask is ``mask``."""
-    _require(d_out.is_cuda, "d_out must lie on a CUDA device")
+    require(d_out.is_cuda, "d_out must lie on a CUDA device")
     _check_rows(d_out, "d_out")
-    _require(d_out.get_device() == mask.get_device(), "d_out must lie on the forward's device")
+    require(d_out.get_device() == mask.get_device(), "d_out must lie on the forward's device")
     if d_out.shape[0] != mask.shape[0]:
         raise ValueError(f"d_out has {d_out.shape[0]} rows, slots {mask.shape[0]}")
 
@@ -391,7 +369,7 @@ def gather_mean_bwd(
     the transpose and the backward launches the kernel alone.
 
     The kernels sum each row of d_h in f32 in increasing flat slot index
-    and round once: the same bits on every run whenever S*k <= 2**20; f32
+    and round once: the same bits on every run, at any slot-table size; f32
     results agree with the plain version to rounding (the card check holds
     them to 1e-4 of the largest magnitude), bf16 to 5e-2."""
     if d_out.device.type == "cpu":
@@ -431,7 +409,7 @@ class _GatherMean(torch.autograd.Function):
 
 
 def _check_k3(h_src: torch.Tensor, slots: torch.Tensor, mask: torch.Tensor) -> None:
-    _require(h_src.is_cuda, "h_src must lie on a CUDA device")
+    require(h_src.is_cuda, "h_src must lie on a CUDA device")
     _check_rows(h_src, "h_src")
     _check_slots(slots, mask, h_src.get_device())
 

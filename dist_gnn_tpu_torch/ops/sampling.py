@@ -17,16 +17,26 @@ replace=False, ``bits[B, k]`` for replace=True.  ``key`` is either a
 ``torch.Generator`` the keys are drawn from, or the key tensor itself, so a
 test can inject the JAX package's ``prng.random_keys`` and require the same
 samples.
+
+On the card :func:`sample_uniform` is K6, one CUDA kernel per call
+(``csrc/sampling.cu`` ``dg_sample_uniform``, whose header notes what it
+replaces, what bounds it and how its design meets that bound); its plain
+PyTorch version :func:`sample_uniform_plain` serves CPU tensors and only
+them.  A CUDA tensor launches the kernel, or raises: there is no fallback.
+``sample_uniform.launches`` counts the launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Union
 
 import torch
 
 from dist_gnn_tpu_torch.graph import INVALID_ID, Graph
+from dist_gnn_tpu_torch.kernels import build
 from dist_gnn_tpu_torch.ops import prng
+from dist_gnn_tpu_torch.kernels.launch import check_launch, require, stream_of
 
 Key = Union[torch.Generator, torch.Tensor]
 
@@ -59,17 +69,21 @@ def _row_extents(graph: Graph, seeds: torch.Tensor):
     return start, deg, valid
 
 
-def sample_uniform(
-    graph: Graph, seeds: torch.Tensor, k: int, replace: bool, key: Key
-) -> SampledNeighbors:
-    """Uniformly sample up to ``k`` in-neighbours per seed row.
+def _lib() -> ctypes.CDLL:
+    lib = build.load("sampling")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.dg_sample_uniform.argtypes = [p, i32, p, p, p, p, p, i64, i32, i64, i64, i32, p]
+        lib.dg_sample_uniform.restype = i32
+        lib._argtypes_set = True
+    return lib
 
-    Distinctness caveat (replace=False): picks come from a keyed Feistel
-    permutation whose cycle-walk fallback breaks bijectivity with ~1e-3
-    probability per element (``prng.feistel_permutation``), so a row can
-    very rarely hold a duplicate neighbour.  The relabel dedups, so results
-    stay correct; only the sampling statistics carry the ~0.1% noise.
-    """
+
+def plain_positions(graph: Graph, seeds: torch.Tensor, k: int, replace: bool, key: Key):
+    """The plain version's selection, op by op: ``(pos, mask)``, the [B, k]
+    positions into ``graph.indices`` that the slots read (``start + sel``
+    clamped into the edge list) and which slots are taken.  Keys are drawn
+    as :func:`sample_uniform` draws them."""
     B = seeds.shape[0]
     dev = seeds.device
     start, deg, valid = _row_extents(graph, seeds)
@@ -84,14 +98,90 @@ def sample_uniform(
         perm = prng.feistel_permutation(j, deg[:, None], row_key[:, None])
         sel = torch.where(deg[:, None] <= k, j, perm)
         mask = valid[:, None] & (j < torch.clamp(deg[:, None], max=k))
+    pos = torch.clamp(start[:, None] + sel.long(), 0, max(graph.num_edges - 1, 0))
+    return pos, mask
 
+
+def sample_uniform_plain(
+    graph: Graph, seeds: torch.Tensor, k: int, replace: bool, key: Key
+) -> SampledNeighbors:
+    """Plain version of K6 (what :func:`sample_uniform` runs for CPU
+    tensors), op by op in PyTorch on any device."""
+    pos, mask = plain_positions(graph, seeds, k, replace, key)
     if graph.num_edges == 0:
-        mask = torch.zeros((B, k), dtype=torch.bool, device=dev)
-        ids = torch.full((B, k), INVALID_ID, dtype=torch.int32, device=dev)
+        B = seeds.shape[0]
+        mask = torch.zeros((B, k), dtype=torch.bool, device=seeds.device)
+        ids = torch.full((B, k), INVALID_ID, dtype=torch.int32, device=seeds.device)
         return SampledNeighbors(ids=ids, mask=mask)
-    pos = torch.clamp(start[:, None] + sel.long(), 0, graph.num_edges - 1)
     ids = torch.where(mask, graph.indices[pos], INVALID_ID)
     return SampledNeighbors(ids=ids, mask=mask.contiguous())
+
+
+def _check_graph(graph: Graph, seeds: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the seeds and the graph suit K6: one CUDA
+    device (compared by index: a CPU or meta tensor has index -1), int32
+    seeds, an int32 or int64 ``indptr`` and int32 ``indices``, all
+    contiguous and 1-D."""
+    require(seeds.is_cuda, "seeds must lie on a CUDA device")
+    index = seeds.get_device()
+    require(
+        graph.indptr.get_device() == index and graph.indices.get_device() == index,
+        f"the graph must lie on the seeds' CUDA device {index}",
+    )
+    require(
+        seeds.dtype == torch.int32 and seeds.dim() == 1 and seeds.is_contiguous(),
+        "seeds must be a contiguous 1-D int32 tensor",
+    )
+    require(
+        graph.indptr.dtype in (torch.int32, torch.int64) and graph.indptr.dim() == 1
+        and graph.indptr.is_contiguous() and graph.indptr.shape[0] == graph.num_nodes + 1,
+        "indptr must be a contiguous [N + 1] int32 or int64 tensor",
+    )
+    require(
+        graph.indices.dtype == torch.int32 and graph.indices.is_contiguous()
+        and graph.indices.shape == (graph.num_edges,),
+        "indices must be a contiguous [E] int32 tensor",
+    )
+
+
+def sample_uniform(
+    graph: Graph, seeds: torch.Tensor, k: int, replace: bool, key: Key
+) -> SampledNeighbors:
+    """Uniformly sample up to ``k`` in-neighbours per seed row — K6 on the
+    card, one launch per call (plain version: :func:`sample_uniform_plain`).
+    The keys are drawn (or checked) as the plain version draws them; an
+    edgeless graph or an empty output is answered without a launch.  Ids
+    and mask equal the plain version's bit for bit.
+
+    Distinctness caveat (replace=False): picks come from a keyed Feistel
+    permutation whose cycle-walk fallback breaks bijectivity with ~1e-3
+    probability per element (``prng.feistel_permutation``), so a row can
+    very rarely hold a duplicate neighbour.  The relabel dedups, so results
+    stay correct; only the sampling statistics carry the ~0.1% noise.
+    """
+    if seeds.device.type == "cpu":
+        return sample_uniform_plain(graph, seeds, k, replace, key)
+    _check_graph(graph, seeds)
+    B = seeds.shape[0]
+    keys = draw_keys(key, (B, k) if replace else (B,), seeds.device).contiguous()
+    if graph.num_edges == 0 or B * k == 0:
+        return SampledNeighbors(
+            ids=torch.full((B, k), INVALID_ID, dtype=torch.int32, device=seeds.device),
+            mask=torch.zeros((B, k), dtype=torch.bool, device=seeds.device),
+        )
+    ids = torch.empty((B, k), dtype=torch.int32, device=seeds.device)
+    mask = torch.empty((B, k), dtype=torch.bool, device=seeds.device)
+    rc = _lib().dg_sample_uniform(
+        graph.indptr.data_ptr(), int(graph.indptr.dtype == torch.int64), graph.indices.data_ptr(),
+        seeds.data_ptr(), keys.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+        B, k, graph.num_nodes, graph.num_edges, int(replace), stream_of(seeds),
+    )
+    check_launch(rc, "sample_uniform")
+    sample_uniform.launches += 1
+    return SampledNeighbors(ids=ids, mask=mask)
+
+
+sample_uniform.launches = 0
 
 
 def sample_neighbors(

@@ -237,9 +237,10 @@ def test_gather_mean_without_a_gradient_skips_the_autograd_node():
 
 
 def test_stream_calls_are_those_of_a_cuda_build():
-    """``_stream`` calls ``torch._C``'s raw current-device and stream calls
-    with no fallback: every CUDA build of PyTorch must have them, and a
-    CPU-only build, where no CUDA tensor reaches ``_stream``, has neither."""
+    """``kernels.launch.stream_of`` calls ``torch._C``'s raw current-device
+    and stream calls with no fallback: every CUDA build of PyTorch must have
+    them, and a CPU-only build, where no CUDA tensor reaches ``stream_of``,
+    has neither."""
     have = [hasattr(torch._C, name) for name in ("_cuda_getDevice", "_cuda_getCurrentRawStream")]
     assert have == [torch.backends.cuda.is_built()] * 2
 
