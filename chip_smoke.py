@@ -80,7 +80,27 @@ weights from a seed.  Phases, one JSON line each:
     graph, against the on-card ``full_graph_inference``, timed;
 13. convergence: a fresh SAGE trained for 2 epochs over the training seeds
     (bench.py:399-441), then ``full_graph_inference`` and the validation
-    accuracy, which must reach 0.99 (the pinned 1.0 less the margin).
+    accuracy, which must reach 0.99 (the pinned 1.0 less the margin);
+14. the host-resident tiers (features f32 in host memory): cost_model
+    (``calibrate``'s K1 gather bandwidth, ``calibrate_host_staging``'s host
+    gather and host → device bandwidths); cache_plan (``build_cache_plan``
+    at 20% of the structure plus feature bytes, policy auto: mode, hot
+    counts, the heat pass's ms, hit rates over one epoch's frontiers);
+    host_tier_features (bench.py:443-497: the half of the nodes with the
+    highest degree hot, miss budget 2^17, structure on the card; 2 warm-up
+    and 12 timed ``HostTierTrainer.train_batches`` batches: ms, trained
+    edges/s, miss rows, stage ms (host gather, copy), staged MB/s, launches;
+    ``Trainer.train_step`` on the same batches beside it); host_tier_full
+    (structure host-resident too, the plan's hot sets, miss budget the
+    layer-0 frontier capacity, deg_cap 128; the same measures plus the
+    structure misses and K6 launches, then 2 epochs and val_acc >= 0.99).
+    Held: (a) ``assemble_features`` equals a plain gather of the host
+    matrix exactly; (b) ``sample_staged_hop`` on the card equals the CPU's
+    bit for bit at the three hops (injected keys, the same hub-row seed),
+    K6 once for the hot rows and once for the staged ones; (c) the
+    pipelined ``train_batches`` equals a sequential sample → stage →
+    ``compute_step`` loop within 1e-5 after 6 batches; (d) every stage
+    gathered through the native library built from the port's source.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.  Any
@@ -268,9 +288,13 @@ def main() -> int:
     import torch.nn.functional as F
 
     t_script = time.perf_counter()
+    from dist_gnn_tpu_torch.cache.builder import build_cache_plan, compute_heats
+    from dist_gnn_tpu_torch.cache.cost_model import calibrate, calibrate_host_staging
+    from dist_gnn_tpu_torch.cache.policy import structure_space_bytes
     from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
     from dist_gnn_tpu_torch.dataloading.seeds import SeedGenerator
     from dist_gnn_tpu_torch.graph import INVALID_ID, HostGraph
+    from dist_gnn_tpu_torch.host_tier import HostCSCStore, HostFeatureStore, assemble_features, sample_staged_hop
     from dist_gnn_tpu_torch.kernels import build
     from dist_gnn_tpu_torch.models.gat import GAT
     from dist_gnn_tpu_torch.models.gcn import GCN
@@ -279,9 +303,13 @@ def main() -> int:
     from dist_gnn_tpu_torch.models.sage import SAGE, contiguous_mean
     from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, prng, sampling, spmm
+    from dist_gnn_tpu_torch.ops.hashtable import np_in_sorted
+    from dist_gnn_tpu_torch.ops.relabel import unique_and_relabel
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
     from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_sampler
-    from dist_gnn_tpu_torch.training import Trainer, masked_nll_loss
+    from dist_gnn_tpu_torch.training import HostTierTrainer, Trainer, masked_nll_loss
+    from dist_gnn_tpu_torch.training.pipeline import batch_keys
+    from dist_gnn_tpu_torch.utils import native
     from dist_gnn_tpu_torch.utils.timing import cuda_time_ms, profile_device
 
     def device_ms(fn, kernel_name):
@@ -1327,7 +1355,233 @@ def main() -> int:
           "full_graph_inference_s": infer_s, "val_acc": val_acc, "val_acc_min": VAL_ACC_MIN,
           "script_s_so_far": total_s, "share_of_script": (conv_s + infer_s) / total_s, **card})
 
-    # ---- 14. kernels, card, result ----------------------------------------
+    # ---- 14. the host-resident tiers -----------------------------------------
+    # features (and structure) in host memory, hot rows on the card, misses
+    # staged per batch through pinned slabs (host_tier.py, HostTierTrainer)
+    feats_host = np.ascontiguousarray(arrays["features"], np.float32)  # the base tier, host memory
+    labels_np = np.asarray(arrays["labels"], np.int32)
+    F_DIM = feats_host.shape[1]
+    t0 = time.perf_counter()
+    cm = calibrate(feature_dim=F_DIM, device=cuda)
+    calibrate_host_staging(feature_dim=F_DIM, batch_rows=1 << 17, cm=cm, device=cuda)  # a stage's size
+    emit({"phase": "cost_model", "hbm_gather_GBps": cm.bandwidth_hbm / 1e9,
+          "host_gather_GBps": cm.staging_gather_bandwidth / 1e9,
+          "h2d_GBps": cm.staging_h2d_bandwidth / 1e9, "host_serial_GBps": cm.bandwidth_host / 1e9,
+          "feature_dim": F_DIM, "seconds": time.perf_counter() - t0, **card})
+
+    # the cache plan at the example's --hot-frac default: 20% of the
+    # structure plus the f32 features
+    struct_bytes = hg.indptr.nbytes + hg.indices.nbytes
+    capacity = int(0.2 * (struct_bytes + feats_host.nbytes))
+    t0 = time.perf_counter()
+    compute_heats(hg, [arrays["train_idx"]], FAN_OUT, device=cuda)
+    torch.cuda.synchronize()
+    heat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mode, s_plan, f_plan = build_cache_plan(hg, F_DIM, [arrays["train_idx"]], FAN_OUT, capacity,
+                                            policy="auto", cost=cm, device=cuda)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    s_hot = s_plan[0][s_plan[0] != INVALID_ID]
+    f_hot = f_plan[0][f_plan[0] != INVALID_ID]
+    s_sorted, f_sorted = np.sort(s_hot), np.sort(f_hot)
+    plan_used = int(structure_space_bytes(hg, s_hot).sum()) + len(f_hot) * F_DIM * 4
+    check(0 < plan_used <= capacity, f"cache plan uses {plan_used} of {capacity} bytes")
+    # hit rates over one epoch of device-sampled batches: each hop's valid
+    # seeds against the structure set, the input frontier against the
+    # feature set
+    epoch_np = np.random.default_rng(300).permutation(arrays["train_idx"]).astype(np.int32)
+    n_epoch = len(epoch_np) // BATCH
+    hits = np.zeros(len(FAN_OUT) + 1)
+    tot = np.zeros(len(FAN_OUT) + 1)
+    pgen = torch.Generator(device=cuda).manual_seed(301)
+    for b in range(n_epoch):
+        s = torch.from_numpy(epoch_np[b * BATCH:(b + 1) * BATCH]).to(cuda)
+        bl, _ = sample_blocks(graph, s, torch.ones(BATCH, dtype=torch.bool, device=cuda), FAN_OUT, False, pgen,
+                              dedup_last=False)
+        for h, blk in enumerate(bl):
+            ids = blk.seeds[blk.seed_mask].cpu().numpy()
+            hits[h] += np_in_sorted(s_sorted, ids)[0].sum()
+            tot[h] += len(ids)
+        ids = bl[-1].frontier[bl[-1].frontier_mask].cpu().numpy()
+        hits[-1] += np_in_sorted(f_sorted, ids)[0].sum()
+        tot[-1] += len(ids)
+    emit({"phase": "cache_plan", "mode": mode, "capacity_bytes": capacity, "used_bytes": plan_used,
+          "hot_structure_nodes": len(s_hot), "hot_feature_nodes": len(f_hot),
+          "heat_pass_ms": heat_ms, "build_cache_plan_ms": plan_ms, "epoch_batches": n_epoch,
+          "structure_hit_rate_per_hop": (hits[:-1] / tot[:-1]).tolist(),
+          "feature_hit_rate_input_frontier": hits[-1] / tot[-1], **card})
+
+    host_batches = [(epoch_np[b * BATCH:(b + 1) * BATCH], np.ones(BATCH, bool)) for b in range(14)]
+    N_WARM, N_TIMED = 2, 12
+
+    def fresh_sage(seed, dtype=torch.bfloat16):
+        return SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=dtype,
+                    generator=torch.Generator().manual_seed(seed), device=cuda)
+
+    def trained_edges(tr, g, seed, batches):
+        """Valid sampled slots of each batch, sampled again with the keys
+        ``train_batches(..., seed)`` gave it."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for i, (s, mk) in enumerate(batches):
+            bl, *_ = tr.sample(g, s, mk, batch_keys(seed, i, cuda)[0], rng)
+            out.append(sum(int(b.neigh_mask.sum()) for b in bl))
+        return out
+
+    def host_tier_run(name, tr, g, extra):
+        """2 warm-up then 12 timed batches of ``train_batches``; returns
+        the phase's measures and the timed run's launch counts."""
+        tr.train_batches(g, labels_np, host_batches[:N_WARM], 0)
+        torch.cuda.synchronize()
+        calls0 = native.gather_rows.calls
+        reset_counts()
+        t0 = time.perf_counter()
+        mets = tr.train_batches(g, labels_np, host_batches[N_WARM:], 1)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / N_TIMED
+        launches = read_counts()
+        staged_batches = sum(1 for m in mets if m["feat_miss"] > 0)
+        # (d) every stage went through the native library built from the
+        # port's own source
+        check(native.available() and native.gather_rows.calls - calls0 == staged_batches,
+              f"{name}: {native.gather_rows.calls - calls0} native gathers for {staged_batches} staged batches")
+        check(str(build.BUILD_DIR) in build._LOADED["host"]._name, "host library not from the port's build")
+        losses = [float(m["loss"]) for m in mets]
+        check(all(np.isfinite(losses)), f"{name}: loss not finite")
+        miss = float(np.mean([m["feat_miss"] for m in mets]))
+        gather_ms = float(np.mean([m["stage_gather_ms"] for m in mets]))
+        probe_ms = float(np.mean([m["stage_probe_ms"] for m in mets]))
+        h2d_ms = float(np.mean([m["stage_h2d_ms"] for m in mets]))
+        edges = float(np.mean(trained_edges(tr, g, 1, host_batches[N_WARM:])))
+        if "struct_miss" in mets[0]:
+            extra = {**extra, "struct_miss_per_batch": float(np.mean([m["struct_miss"] for m in mets])),
+                     "struct_overflow": sum(m["struct_overflow"] for m in mets),
+                     "struct_plan_ms": float(np.mean([m["struct_plan_ms"] for m in mets]))}
+        return {"batches": N_TIMED, "ms_per_batch": dt * 1e3, "trained_edges_per_s": edges / dt,
+                "valid_edges_per_batch": edges, "feat_miss_rows_per_batch": miss,
+                "feat_overflow": sum(m["feat_overflow"] for m in mets),
+                "stage_probe_ms": probe_ms, "stage_gather_ms": gather_ms, "stage_h2d_ms": h2d_ms,
+                "copy_span_GBps": miss * F_DIM * 4 / (h2d_ms / 1e3) / 1e9 if h2d_ms > 0 else None,
+                "staged_MBps": miss * F_DIM * 4 / dt / 2**20,
+                "launches_per_batch": {k: v / N_TIMED for k, v in launches.items() if v},
+                "losses": losses, **extra}, launches
+
+    # features host-resident, structure on the card (bench.py:443-497):
+    # the half of the nodes with the highest degree hot
+    deg_np = np.diff(hg.indptr.astype(np.int64))
+    half = np.argpartition(deg_np, -(hg.num_nodes // 2))[-(hg.num_nodes // 2):].astype(np.int32)
+    fstore = HostFeatureStore(feats_host, half, miss_budget=1 << 17, device=cuda)
+    # (a) the assembled input equals a plain gather of the whole host matrix
+    bl0, _ = sample_blocks(graph, torch.from_numpy(host_batches[0][0]).to(cuda),
+                           torch.ones(BATCH, dtype=torch.bool, device=cuda), FAN_OUT, False,
+                           torch.Generator(device=cuda).manual_seed(302), dedup_last=False)
+    f0, fm0 = bl0[-1].frontier, bl0[-1].frontier_mask
+    st0 = fstore.stage(f0.cpu().numpy(), fm0.cpu().numpy())
+    st0.wait()
+    got0 = assemble_features(fstore.hot_tier, f0, fm0, st0.rows, st0.slots)
+    f0n, fm0n = f0.cpu().numpy(), fm0.cpu().numpy()
+    want0 = torch.from_numpy(np.where(fm0n[:, None], feats_host[np.where(fm0n, f0n, 0)], 0))
+    check(torch.equal(got0.cpu(), want0), "(a) assemble_features differs from a plain gather of the host matrix")
+    check(st0.count > 0 and st0.count < int(fm0.sum()), "(a) both tiers in use")
+
+    ht = HostTierTrainer(model=fresh_sage(12), fan_out=FAN_OUT, store=fstore, dedup_last=False, device=cuda)
+    feats_res, launch_feat = host_tier_run("host_tier_features", ht, graph, {})
+    want = {"sample_uniform": 3, "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2}
+    check(launch_feat == {k: want.get(k, 0) * N_TIMED for k in counters},
+          f"host_tier_features launches {launch_feat}")
+    # the device-resident step on the same batches and graph, f32 features
+    # on the card
+    feats_dev = torch.from_numpy(feats_host).to(cuda)
+    labels_dev = torch.from_numpy(labels_np).to(cuda)
+    dtr = Trainer(model=fresh_sage(12), fan_out=FAN_OUT, dedup_last=False, device=cuda)
+    dgen = torch.Generator(device=cuda).manual_seed(303)
+    dev_batches = [(torch.from_numpy(s).to(cuda), torch.from_numpy(mk).to(cuda)) for s, mk in host_batches]
+    for s, mk in dev_batches[:N_WARM]:
+        dtr.train_step(graph, feats_dev, labels_dev, s, mk, dgen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s, mk in dev_batches[N_WARM:]:
+        dtr.train_step(graph, feats_dev, labels_dev, s, mk, dgen)
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) / N_TIMED * 1e3
+    # (c) the pipelined run equals a sequential sample -> stage -> compute
+    # loop with the same keys (6 batches, f32 params)
+    runs = []
+    for pipelined in (True, False):
+        tr_c = HostTierTrainer(model=fresh_sage(13), fan_out=FAN_OUT, store=fstore, dedup_last=False, device=cuda)
+        if pipelined:
+            tr_c.train_batches(graph, labels_np, host_batches[:6], 5)
+        else:
+            rng_c = np.random.default_rng(5)
+            for i, (s, mk) in enumerate(host_batches[:6]):
+                sk, dk = batch_keys(5, i, cuda)
+                blk_c, _, fr, frm = tr_c.sample(graph, s, mk, sk, rng_c)
+                tr_c.compute_step(blk_c, fstore.stage(fr, frm), tr_c.batch_labels(labels_np, s, mk),
+                                  torch.from_numpy(mk).to(cuda), dk)
+        torch.cuda.synchronize()
+        runs.append({k: v.detach().clone() for k, v in tr_c.model.state_dict().items()})
+    pipe_err = max(rel_err(runs[0][k], runs[1][k]) for k in runs[0])
+    pipe_equal = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+    check(pipe_err <= 1e-5, f"(c) pipelined params differ from sequential by {pipe_err}")
+    emit({"phase": "host_tier_features", "hot_nodes": len(half), "miss_budget": 1 << 17, **feats_res,
+          "device_resident_ms_per_step": dev_ms, "assemble_exact": True,
+          "pipelined_vs_sequential_rel_err": pipe_err, "pipelined_bit_equal": pipe_equal, **card})
+
+    # structure and features host-resident (--tier host --host-struct), hot
+    # sets from the cache plan
+    front_cap = layer_capacities(BATCH, FAN_OUT)[-1]
+    gstore = HostCSCStore(hg, s_hot, miss_budget=front_cap, deg_cap=128, device=cuda)
+    fstore_full = HostFeatureStore(feats_host, f_hot, miss_budget=front_cap, device=cuda)
+    # (b) each hop of sample_staged_hop on the card equals the CPU's, bit
+    # for bit, with injected keys and the same hub-row seed
+    gstore_cpu = HostCSCStore(hg, s_hot, miss_budget=front_cap, deg_cap=128, device="cpu")
+    kgen = torch.Generator().manual_seed(304)
+    seeds_h, mask_h = host_batches[0][0], host_batches[0][1]
+    hop_rows = []
+    for i, kk in enumerate(reversed(FAN_OUT)):
+        loc_g, st_g = gstore.plan_hop(seeds_h, mask_h, kk, np.random.default_rng(40 + i))
+        loc_c, st_c = gstore_cpu.plan_hop(seeds_h, mask_h, kk, np.random.default_rng(40 + i))
+        keys = (prng.random_keys(kgen, (len(seeds_h),)), prng.random_keys(kgen, (st_c.count,)))
+        reset_counts()
+        nb_g = sample_staged_hop(gstore.hot_graph, torch.from_numpy(loc_g).to(cuda), st_g, kk,
+                                 tuple(k.to(cuda) for k in keys))
+        torch.cuda.synchronize()
+        k6_hop = sampling.sample_uniform.launches
+        nb_c = sample_staged_hop(gstore_cpu.hot_graph, torch.from_numpy(loc_c), st_c, kk, keys)
+        check(torch.equal(nb_g.ids.cpu(), nb_c.ids) and torch.equal(nb_g.mask.cpu(), nb_c.mask),
+              f"(b) sample_staged_hop hop {i}: the card differs from the CPU")
+        check(k6_hop == 1 + (st_g.count > 0 and st_g.graph.num_edges > 0), f"(b) hop {i}: {k6_hop} K6 launches")
+        hop_rows.append({"hop": i, "seeds": len(seeds_h), "staged_rows": st_c.count,
+                         "hub_rows": int(st_c.is_pre.sum()), "staged_edges": st_c.graph.num_edges, "k6": k6_hop})
+        rl = unique_and_relabel(torch.from_numpy(seeds_h), nb_c.ids, nb_c.mask)
+        seeds_h, mask_h = rl.frontier.numpy(), rl.frontier_mask.numpy()
+    hf = HostTierTrainer(model=fresh_sage(14), fan_out=FAN_OUT, store=fstore_full, gstore=gstore,
+                         dedup_last=False, device=cuda)
+    full_res, launch_full = host_tier_run("host_tier_full", hf, None, {})
+    k6_per = launch_full["sample_uniform"] / N_TIMED
+    check(len(FAN_OUT) <= k6_per <= 2 * len(FAN_OUT), f"host_tier_full: {k6_per} K6 launches per batch")
+    # 2 epochs host-resident, then the full-graph validation accuracy
+    conv_host = HostTierTrainer(model=fresh_sage(6), fan_out=FAN_OUT, store=fstore_full, gstore=gstore,
+                                dedup_last=False, device=cuda)
+    t0 = time.perf_counter()
+    n_conv_h = 0
+    for ep in range(CONV_EPOCHS):
+        order = np.random.default_rng(400 + ep).permutation(arrays["train_idx"]).astype(np.int32)
+        ep_batches = [(order[b * BATCH:(b + 1) * BATCH], np.ones(BATCH, bool)) for b in range(len(order) // BATCH)]
+        mets_h = conv_host.train_batches(None, labels_np, ep_batches, 500 + ep)
+        n_conv_h += len(ep_batches)
+    torch.cuda.synchronize()
+    conv_h_s = time.perf_counter() - t0
+    h_logits = full_graph_inference(conv_host.model, None, hg, features, device=cuda)
+    h_val = float((torch.argmax(h_logits, dim=-1)[vid] == labels[vid]).float().mean())
+    check(h_val >= VAL_ACC_MIN, f"host-resident val_acc {h_val} below {VAL_ACC_MIN}")
+    emit({"phase": "host_tier_full", "hot_structure_nodes": len(s_hot), "hot_feature_nodes": len(f_hot),
+          "miss_budget": front_cap, "deg_cap": 128, "hops_checked": hop_rows, **full_res,
+          "k6_per_batch": k6_per,
+          "epochs": CONV_EPOCHS, "steps": n_conv_h, "train_s": conv_h_s, "final_loss": float(mets_h[-1]["loss"]),
+          "val_acc": h_val, "val_acc_min": VAL_ACC_MIN, **card})
+
+    # ---- 15. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: kern[k] for k in keys} for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k)]})

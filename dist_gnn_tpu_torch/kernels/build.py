@@ -1,11 +1,15 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-first use into ``_build/`` beside this package (listed in ``.gitignore``)
-as ``lib<name>-<hash>.so``, the hash covering the source and the flags, so
-a stale library is never loaded.  nvcc by hand with a C interface builds in
-seconds; ``torch.utils.cpp_extension.load`` would compile PyTorch's headers
-for minutes.  :func:`build_all` starts one nvcc per source, all at once.
+Each ``csrc/<name>.cu`` (CUDA, compiled by nvcc) or ``csrc/<name>.cc``
+(the host runtime, compiled by g++ with OpenMP) exposes a plain C
+interface and is compiled on first use into ``_build/`` beside this
+package (listed in ``.gitignore``) as ``lib<name>-<hash>.so``, the hash
+covering the source and the flags, so a stale library is never loaded.
+A build writes a file of its own and renames it into place, so processes
+that build the same library at once (test workers) each load a whole one.
+nvcc by hand with a C interface builds in seconds;
+``torch.utils.cpp_extension.load`` would compile PyTorch's headers for
+minutes.  :func:`build_all` starts one compiler per source, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and a
 build starts only when a CUDA tensor reaches a kernel wrapper (or a caller
@@ -20,17 +24,18 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gather", "gat", "sampling")  # csrc/<name>.cu, one library each
+SOURCES = ("gather", "gat", "sampling", "host")  # csrc/<name>.cu or .cc, one library each
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-fopenmp", "-shared")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -45,17 +50,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _source(name: str) -> Path:
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cc"
+
+
+def _command(src: Path, out: Path) -> List[str]:
+    if src.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host runtime needs a C++ compiler")
+    return [gxx, *GXX_FLAGS, "-o", str(out), str(src)]
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library, one nvcc process per source, all in
-    parallel.  Returns each name's compiler log (``-Xptxas -v`` prints the
-    registers and spills of every kernel); raises if any build fails."""
+    """Compile every missing library, one compiler process per source, all
+    in parallel.  Returns each name's compiler log (``-Xptxas -v`` prints
+    the registers and spills of every kernel); raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -63,7 +82,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = _command(_source(name), tmp)
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -79,7 +98,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         (BUILD_DIR / f"lib{name}.log").write_text(logs[name])
     if failed:
         raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
+            "the build failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[n] for n in failed)
         )
     return logs

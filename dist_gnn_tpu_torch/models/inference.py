@@ -24,8 +24,10 @@ expander shape its walks to the TPU and are not carried over.
 :func:`full_graph_inference_host` keeps features and activations in host
 memory (numpy, or an ``np.memmap``); nothing of shape [N, *] reaches the
 device.  Per destination chunk, each edge slab's source rows are gathered
-on the host into one of two reused buffers (pinned when the device is the
-card), copied with ``non_blocking=True``, and the device accumulates: the
+on the host by the native OpenMP gather (``utils/native.gather_rows``)
+into one of two reused buffers (``utils/staging.PinnedRing``, pinned when
+the device is the card), copied with ``non_blocking=True``, and the
+device accumulates: the
 sum for SAGE, the sum of rows scaled by ``1/sqrt(deg+1)`` for GCN, and the
 online (max-rescaled) softmax across slabs for GAT.
 """
@@ -43,7 +45,9 @@ from dist_gnn_tpu_torch.models.gat import GAT
 from dist_gnn_tpu_torch.models.gcn import GCN
 from dist_gnn_tpu_torch.models.sage import SAGE
 from dist_gnn_tpu_torch.ops.gather import gather_rows
+from dist_gnn_tpu_torch.utils import native
 from dist_gnn_tpu_torch.utils.device import DeviceLike, resolve_device
+from dist_gnn_tpu_torch.utils.staging import PinnedRing
 
 
 def _edge_rows(indptr: torch.Tensor, num_nodes: int, nnz: int) -> torch.Tensor:
@@ -180,7 +184,7 @@ def full_graph_inference_host(
     Per destination chunk of ``node_chunk`` rows: the chunk's own rows go
     to the device in f32; its in-edges are walked in slabs of at most
     ``edge_chunk`` edges whose source rows are gathered on the host
-    (``torch.index_select`` into a reused buffer), copied to the device
+    (``native.gather_rows`` into a reused buffer), copied to the device
     and accumulated there, with state of O(node_chunk * F + edge_chunk * F)
     only.  SAGE divides the sum by max(deg, 1) (``_acc_sum_slab``); GCN
     scales each source row by ``1/sqrt(deg+1)`` on the host and the sum by
@@ -196,18 +200,15 @@ def full_graph_inference_host(
     deg = np.diff(indptr)
     inv_sqrt = _inv_sqrt_deg(torch.from_numpy(deg))
     is_gat, is_gcn = isinstance(model, GAT), isinstance(model, GCN)
-    pin = dev.type == "cuda"
-    h_host = torch.from_numpy(np.asarray(host_features, dtype=np.float32))  # no copy for f32
+    ring = PinnedRing(dev)
+    h_host = torch.from_numpy(np.ascontiguousarray(host_features, dtype=np.float32))  # no copy for f32
     for l in range(len(model.dims)):
         p = _layer_params(model, params, l, dev)
         last = l == len(model.dims) - 1
         width = h_host.shape[1]
-        bufs = [torch.empty((edge_chunk, width), dtype=torch.float32, pin_memory=pin) for _ in range(2)]
-        copied = [None, None]  # the event after each buffer's last copy
         d_out = model.dims[l][1]
         out_dim = d_out * (1 if (last or not is_gat) else model.num_heads)
         out_host = np.empty((N, out_dim), np.float32)
-        slab = 0
         for lo in range(0, N, node_chunk):
             num = min(node_chunk, N - lo)
             e_lo, e_hi = int(indptr[lo]), int(indptr[lo + num])
@@ -223,19 +224,14 @@ def full_graph_inference_host(
                 acc = torch.zeros((num, width), dtype=torch.float32, device=dev)
             for b0 in range(e_lo, e_hi, edge_chunk):
                 n = min(edge_chunk, e_hi - b0)
-                i = slab % 2
-                slab += 1
-                if copied[i] is not None:
-                    copied[i].synchronize()  # the buffer's previous copy has left
+                i = ring.acquire()
                 src = indices[b0 : b0 + n]
-                buf = bufs[i][:n]
-                torch.index_select(h_host, 0, src, out=buf)
+                buf = ring.buffer(i, "rows", (n, width), torch.float32)
+                native.gather_rows(h_host.numpy(), src.numpy(), out=buf.numpy())
                 if is_gcn:
                     buf.mul_(inv_sqrt[src, None])
                 msg = buf.to(dev, non_blocking=True)
-                if pin:
-                    copied[i] = torch.cuda.Event()
-                    copied[i].record()
+                ring.release(i)
                 rows = rows_chunk[b0 - e_lo : b0 - e_lo + n]
                 if is_gat:
                     z_src, _, er_src = model._project(p, msg, d_out)

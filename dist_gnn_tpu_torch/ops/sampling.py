@@ -107,12 +107,13 @@ def sample_uniform_plain(
 ) -> SampledNeighbors:
     """Plain version of K6 (what :func:`sample_uniform` runs for CPU
     tensors), op by op in PyTorch on any device."""
-    pos, mask = plain_positions(graph, seeds, k, replace, key)
-    if graph.num_edges == 0:
+    if graph.num_edges == 0:  # every row is empty, a node-less graph's too
         B = seeds.shape[0]
+        draw_keys(key, (B, k) if replace else (B,), seeds.device)  # drawn as on the card
         mask = torch.zeros((B, k), dtype=torch.bool, device=seeds.device)
         ids = torch.full((B, k), INVALID_ID, dtype=torch.int32, device=seeds.device)
         return SampledNeighbors(ids=ids, mask=mask)
+    pos, mask = plain_positions(graph, seeds, k, replace, key)
     ids = torch.where(mask, graph.indices[pos], INVALID_ID)
     return SampledNeighbors(ids=ids, mask=mask.contiguous())
 

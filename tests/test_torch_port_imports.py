@@ -30,6 +30,9 @@ def test_walk_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     for module in ("ops/gather.py", "ops/gat.py", "models/gat.py", "models/gcn.py",
-                   "models/inference.py", "training/trainer.py", "scripts/bench_gather2.py"):
+                   "models/inference.py", "training/trainer.py", "scripts/bench_gather2.py",
+                   "utils/native.py", "utils/staging.py", "ops/hashtable.py", "feature_server.py",
+                   "ops/heat.py", "cache/cost_model.py", "cache/policy.py", "cache/builder.py",
+                   "host_tier.py", "training/pipeline.py"):
         assert f"dist_gnn_tpu_torch/{module}" in names
     assert len(names) >= 20
