@@ -100,7 +100,9 @@ weights from a seed.  Phases, one JSON line each:
     K6 once for the hot rows and once for the staged ones; (c) the
     pipelined ``train_batches`` equals a sequential sample → stage →
     ``compute_step`` loop within 1e-5 after 6 batches; (d) every stage
-    gathered through the native library built from the port's source.
+    gathered through the native library built from the port's source; the
+    device memory's peak over the 390 epoch batches stays within 1.25x
+    (+256 MiB) of its peak over the 12 timed ones.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.  Any
@@ -1434,11 +1436,14 @@ def main() -> int:
         tr.train_batches(g, labels_np, host_batches[:N_WARM], 0)
         torch.cuda.synchronize()
         calls0 = native.gather_rows.calls
+        torch.cuda.reset_peak_memory_stats(cuda)
+        mem0 = torch.cuda.memory_allocated(cuda)
         reset_counts()
         t0 = time.perf_counter()
         mets = tr.train_batches(g, labels_np, host_batches[N_WARM:], 1)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / N_TIMED
+        peak_mb = (torch.cuda.max_memory_allocated(cuda) - mem0) / 2**20
         launches = read_counts()
         staged_batches = sum(1 for m in mets if m["feat_miss"] > 0)
         # (d) every stage went through the native library built from the
@@ -1464,7 +1469,7 @@ def main() -> int:
                 "copy_span_GBps": miss * F_DIM * 4 / (h2d_ms / 1e3) / 1e9 if h2d_ms > 0 else None,
                 "staged_MBps": miss * F_DIM * 4 / dt / 2**20,
                 "launches_per_batch": {k: v / N_TIMED for k, v in launches.items() if v},
-                "losses": losses, **extra}, launches
+                "peak_MiB_over_start": peak_mb, "losses": losses, **extra}, launches
 
     # features host-resident, structure on the card (bench.py:443-497):
     # the half of the nodes with the highest degree hot
@@ -1563,6 +1568,12 @@ def main() -> int:
     # 2 epochs host-resident, then the full-graph validation accuracy
     conv_host = HostTierTrainer(model=fresh_sage(6), fan_out=FAN_OUT, store=fstore_full, gstore=gstore,
                                 dedup_last=False, device=cuda)
+    # device memory stays flat across an epoch call: each batch's staged
+    # rows are freed once its compute is queued, so the peak over 195
+    # batches is the peak over the 12 timed ones
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    mem0 = torch.cuda.memory_allocated(cuda)
     t0 = time.perf_counter()
     n_conv_h = 0
     for ep in range(CONV_EPOCHS):
@@ -1572,6 +1583,11 @@ def main() -> int:
         n_conv_h += len(ep_batches)
     torch.cuda.synchronize()
     conv_h_s = time.perf_counter() - t0
+    epoch_peak_mb = (torch.cuda.max_memory_allocated(cuda) - mem0) / 2**20
+    epoch_end_mb = (torch.cuda.memory_allocated(cuda) - mem0) / 2**20
+    check(epoch_peak_mb <= 1.25 * full_res["peak_MiB_over_start"] + 256 and epoch_end_mb <= 64,
+          f"host-resident epochs: device memory peaks {epoch_peak_mb:.0f} MiB over the start "
+          f"({full_res['peak_MiB_over_start']:.0f} over 12 batches) and ends {epoch_end_mb:.0f} MiB above it")
     h_logits = full_graph_inference(conv_host.model, None, hg, features, device=cuda)
     h_val = float((torch.argmax(h_logits, dim=-1)[vid] == labels[vid]).float().mean())
     check(h_val >= VAL_ACC_MIN, f"host-resident val_acc {h_val} below {VAL_ACC_MIN}")
@@ -1579,6 +1595,7 @@ def main() -> int:
           "miss_budget": front_cap, "deg_cap": 128, "hops_checked": hop_rows, **full_res,
           "k6_per_batch": k6_per,
           "epochs": CONV_EPOCHS, "steps": n_conv_h, "train_s": conv_h_s, "final_loss": float(mets_h[-1]["loss"]),
+          "epochs_peak_MiB_over_start": epoch_peak_mb, "epochs_end_MiB_over_start": epoch_end_mb,
           "val_acc": h_val, "val_acc_min": VAL_ACC_MIN, **card})
 
     # ---- 15. kernels, card, result ----------------------------------------

@@ -22,10 +22,11 @@ served from the card or from the host.
   its miss rows' adjacency as a compact sub-CSC; hot rows and staged rows
   are both sampled by K6 (:func:`sample_staged_hop`).
 
-The miss slab keeps the JAX package's padded size (lossless pow2 growth
-past ``miss_budget``, pad slot L), so the counters mean the same; the
-staged adjacency is compact (the JAX package's dense [M, deg_cap] window
-is a TPU layout) and gives the same ids and mask.
+The staged rows and the staged adjacency are compact: exactly the miss
+rows, where the JAX package pads both to static shapes (a slab grown in
+powers of two past ``miss_budget`` with pad slot L, a dense [M, deg_cap]
+window).  The counters mean the same and the assembled features, ids
+and mask are the same.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ class HotTier:
 class StagedRows(NamedTuple):
     """One batch's staged miss rows: device tensors and host bookkeeping."""
 
-    rows: torch.Tensor  # [R, F] feature rows, zero-padded past count
-    slots: torch.Tensor  # [R] int64 positions in the frontier; pad = L (dropped)
+    rows: torch.Tensor  # [count, F] feature rows
+    slots: torch.Tensor  # [count] int64 positions in the frontier
     count: int  # staged miss rows
     overflow: int  # misses beyond miss_budget (staged all the same)
     probe_s: float  # host seconds of the hot-tier probe (np_in_sorted)
@@ -73,13 +74,16 @@ class StagedRows(NamedTuple):
             torch.cuda.current_stream(self.rows.device).wait_event(self.copy[1])
 
     def h2d_ms(self) -> Optional[float]:
-        """Milliseconds between the copy stream's two events (waits for the
-        second): the rows' copy, the pad rows' zeroing and the slots'
-        copy; None on the CPU."""
-        if self.copy is None:
-            return None
-        self.copy[1].synchronize()
-        return self.copy[0].elapsed_time(self.copy[1])
+        return copy_ms(self.copy)
+
+
+def copy_ms(copy: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]]) -> Optional[float]:
+    """Milliseconds between a stage's two copy events (waits for the
+    second): the rows' and the slots' copies; None on the CPU."""
+    if copy is None:
+        return None
+    copy[1].synchronize()
+    return copy[0].elapsed_time(copy[1])
 
 
 def _sorted_ids(cache_nids) -> np.ndarray:
@@ -103,9 +107,8 @@ class HostFeatureStore:
     ``host_features`` is the full [N, F] matrix in host memory (numpy or
     ``np.memmap``, C-contiguous).  ``cache_nids`` are the hot ids from the
     heat/value policy (INVALID padding dropped).  ``miss_budget`` is the
-    configured per-batch miss capacity: past it the slab grows in powers of
-    two, every miss is staged, and ``overflow`` counts the rows beyond the
-    budget.  ``hot_dtype`` (a torch float dtype) casts the hot rows;
+    configured per-batch miss capacity: every miss is staged all the same,
+    and ``overflow`` counts the rows beyond the budget.  ``hot_dtype`` (a torch float dtype) casts the hot rows;
     integer dtypes raise."""
 
     def __init__(
@@ -147,39 +150,27 @@ class HostFeatureStore:
         rows from the host base into a pinned slab and start the copy to
         the device.  Returns at once; call while the device computes the
         previous batch."""
-        L = len(frontier_np)
-        R = self.miss_budget
         t0 = time.perf_counter()
         member, _ = np_in_sorted(self.sorted_np, frontier_np)
         miss_idx = np.flatnonzero(fmask_np & ~member)
         probe_s = time.perf_counter() - t0
-        overflow = max(0, len(miss_idx) - R)
-        R = max(R, 1)  # miss_budget=0 must still grow when misses exist
-        while R < len(miss_idx):
-            R *= 2
-        R = min(R, L) if L else R
         m = len(miss_idx)
-        F = self.feature_dim
+        overflow = max(0, m - self.miss_budget)
         i = self._ring.acquire()
-        rows_h = self._ring.buffer(i, "rows", (m, F), self._dtype)
-        slots_h = self._ring.buffer(i, "slots", (R,), torch.int64)
+        rows_h = self._ring.buffer(i, "rows", (m, self.feature_dim), self._dtype)
+        slots_h = self._ring.buffer(i, "slots", (m,), torch.int64)
         t0 = time.perf_counter()
         if m:
             native.gather_rows(self.base, frontier_np[miss_idx], out=rows_h.numpy())
         gather_s = time.perf_counter() - t0
-        slots_h.fill_(L)  # pad slot L: dropped by the scatter
-        slots_h[:m] = torch.from_numpy(miss_idx)
+        slots_h.copy_(torch.from_numpy(miss_idx))
         if self._copy_stream is None:
-            rows = torch.zeros((R, F), dtype=self._dtype)
-            rows[:m] = rows_h
-            return StagedRows(rows, slots_h.clone(), m, overflow, probe_s, gather_s, None)
+            return StagedRows(rows_h.clone(), slots_h.clone(), m, overflow, probe_s, gather_s, None)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._copy_stream):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            rows = torch.empty((R, F), dtype=self._dtype, device=self.device)
-            rows[:m].copy_(rows_h, non_blocking=True)
-            rows[m:].zero_()
+            rows = rows_h.to(self.device, non_blocking=True)
             slots = slots_h.to(self.device, non_blocking=True)
             end.record()
         self._ring.release(i, self._copy_stream)
@@ -192,28 +183,23 @@ def assemble_features(
     hot: HotTier,
     frontier: torch.Tensor,  # [L] int32
     fmask: torch.Tensor,  # [L] bool
-    staged_rows: torch.Tensor,  # [R, F]
-    staged_slots: torch.Tensor,  # [R] int64, pad = L
+    staged_rows: torch.Tensor,  # [m, F]
+    staged_slots: torch.Tensor,  # [m] int64 positions in the frontier
 ) -> torch.Tensor:
     """Device side: the frontier's feature rows [L, F].  Hot rows come from
     a K1 gather of ``hot.rows`` at the positions a binary search of
-    ``hot.sorted_ids`` finds (zero where no hot id matches), staged rows
-    are scattered to their slots, and pad slots land in a spare row that
-    is cut off.  Nothing is read back to the host."""
-    L = frontier.shape[0]
+    ``hot.sorted_ids`` finds (zero where no hot id matches), and staged
+    rows are scattered to their slots.  Nothing is read back to the host."""
     C = hot.sorted_ids.shape[0]
     if C == 0:
-        out = torch.zeros((L + 1, staged_rows.shape[1]), dtype=staged_rows.dtype, device=frontier.device)
+        out = torch.zeros((frontier.shape[0], staged_rows.shape[1]), dtype=staged_rows.dtype,
+                          device=frontier.device)
     else:
-        # one spare entry (never a hit) gives the spare row
-        f_ext = torch.cat([frontier, frontier.new_full((1,), INVALID_ID)])
-        m_ext = torch.cat([fmask, fmask.new_zeros(1)])
-        pos = torch.clamp(torch.searchsorted(hot.sorted_ids, f_ext), max=C - 1)
-        hit = m_ext & (hot.sorted_ids[pos] == f_ext)
+        pos = torch.clamp(torch.searchsorted(hot.sorted_ids, frontier), max=C - 1)
+        hit = fmask & (hot.sorted_ids[pos] == frontier)
         out = gather_rows(hot.rows, pos.to(torch.int32))  # K1
         out.masked_fill_(~hit[:, None], 0)
-    out.index_copy_(0, staged_slots, staged_rows.to(out.dtype))
-    return out[:L]
+    return out.index_copy_(0, staged_slots, staged_rows.to(out.dtype))
 
 
 class StagedAdjacency(NamedTuple):

@@ -33,28 +33,23 @@ def np_in_sorted(table: np.ndarray, ids) -> Tuple[np.ndarray, np.ndarray]:
 @dataclasses.dataclass(frozen=True)
 class SortedIdTable:
     """Maps id → slot for a cached id set: ``slots[i]`` is the cache row of
-    ``sorted_ids[i]``; :meth:`lookup` returns (slot, hit)."""
+    ``sorted_ids[i]``, its position in the ids the table was built from;
+    :meth:`lookup` returns (slot, hit)."""
 
     sorted_ids: torch.Tensor  # [C] int32, strictly increasing
-    slots: torch.Tensor  # [C] int32 — cache row / payload per id
-    owners: Optional[torch.Tensor]  # [C] int32 — owning device (or None)
+    slots: torch.Tensor  # [C] int32 — cache row per id
 
     @staticmethod
     def build(
         cache_nids: np.ndarray,
-        slots: Optional[np.ndarray] = None,
-        owners: Optional[np.ndarray] = None,
         priority: Optional[np.ndarray] = None,
         device: DeviceLike = None,
     ) -> "SortedIdTable":
-        """Host-side build, placed on ``device`` (default: the card).
-        ``slots`` defaults to the position in ``cache_nids``.  On duplicate
-        ids the entry with the lowest ``priority`` wins."""
+        """Host-side build, placed on ``device`` (default: the card).  On
+        duplicate ids the entry with the lowest ``priority`` wins."""
         dev = resolve_device(device)
         cache_nids = np.asarray(cache_nids, dtype=np.int32)
         n = len(cache_nids)
-        if slots is None:
-            slots = np.arange(n, dtype=np.int32)
         if priority is None:
             priority = np.zeros(n, dtype=np.int32)
         order = np.lexsort((priority, cache_nids))
@@ -62,14 +57,9 @@ class SortedIdTable:
         keep = np.ones(n, dtype=bool)
         keep[1:] = ids_s[1:] != ids_s[:-1]  # first (lowest priority) wins
         order = order[keep]
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.int32)[order])).to(dev)
-
         return SortedIdTable(
-            sorted_ids=put(cache_nids),
-            slots=put(slots),
-            owners=None if owners is None else put(owners),
+            sorted_ids=torch.from_numpy(cache_nids[order]).to(dev),
+            slots=torch.from_numpy(order.astype(np.int32)).to(dev),
         )
 
     @property

@@ -41,6 +41,7 @@ from dist_gnn_tpu_torch.host_tier import (
     HostFeatureStore,
     StagedRows,
     assemble_features,
+    copy_ms,
     sample_staged_hop,
 )
 from dist_gnn_tpu_torch.ops.relabel import unique_and_relabel
@@ -183,14 +184,16 @@ class HostTierTrainer:
         """Run all batches double-buffered; returns one metrics dict per
         batch: ``loss`` and ``acc`` (0-d device tensors), ``feat_miss``,
         ``feat_overflow``, ``stage_probe_ms`` and ``stage_gather_ms``
-        (host), ``stage_h2d_ms`` (the copy stream's span on the card,
-        ``StagedRows.h2d_ms``; None on the CPU), plus the sampler's
+        (host), ``stage_h2d_ms`` (the copy stream's span on the card; None
+        on the CPU), plus the sampler's
         ``sampler_overflow``/``frontier_overflow`` or, with host
         structure, ``struct_miss``/``struct_overflow`` and
-        ``struct_plan_ms`` (host time of the hops' planning)."""
+        ``struct_plan_ms`` (host time of the hops' planning).  A batch's
+        staged rows are released once its compute is queued; only its copy
+        events are kept until the end, for ``stage_h2d_ms``."""
         rng = np.random.default_rng(seed)
         pend = None
-        metrics, staged_all = [], []
+        metrics, copies = [], []
         for i, (seeds_np, mask_np) in enumerate(batches):
             seeds_np, mask_np = np.asarray(seeds_np), np.asarray(mask_np)
             sample_key, drop_key = batch_keys(seed, i, self.device)
@@ -200,7 +203,7 @@ class HostTierTrainer:
                 metrics.append({**self.compute_step(*args), **stats_prev})  # queued
             # host gather + asynchronous copy ride under the queued compute
             staged = self.store.stage(frontier_np, fmask_np)
-            staged_all.append(staged)
+            copies.append(staged.copy)
             host_stats.update(
                 feat_miss=staged.count, feat_overflow=staged.overflow,
                 stage_probe_ms=staged.probe_s * 1e3, stage_gather_ms=staged.gather_s * 1e3,
@@ -211,6 +214,6 @@ class HostTierTrainer:
         if pend is not None:
             args, stats_prev = pend
             metrics.append({**self.compute_step(*args), **stats_prev})
-        for m, staged in zip(metrics, staged_all):
-            m["stage_h2d_ms"] = staged.h2d_ms()
+        for m, copy in zip(metrics, copies):
+            m["stage_h2d_ms"] = copy_ms(copy)
         return metrics

@@ -51,19 +51,15 @@ def test_np_in_sorted_is_jax_s():
     assert not member.any() and (pos == 0).all()
 
 
-@pytest.mark.parametrize("with_owners", [False, True])
-def test_sorted_id_table_matches_jax(with_owners):
+@pytest.mark.parametrize("with_priority", [False, True])
+def test_sorted_id_table_matches_jax(with_priority):
     rng = np.random.default_rng(4)
     ids = rng.integers(0, 60, 80).astype(np.int32)  # many duplicates
-    slots = rng.integers(0, 1000, 80).astype(np.int32)
-    priority = rng.integers(0, 2, 80).astype(np.int32)  # 0 local, 1 remote
-    owners = rng.integers(0, 4, 80).astype(np.int32) if with_owners else None
-    t = hashtable.SortedIdTable.build(ids, slots, owners, priority, device="cpu")
-    j = jht.SortedIdTable.build(ids, slots, owners, priority)
+    priority = rng.integers(0, 2, 80).astype(np.int32) if with_priority else None  # 0 local, 1 remote
+    t = hashtable.SortedIdTable.build(ids, priority, device="cpu")
+    j = jht.SortedIdTable.build(ids, priority=priority)
     np.testing.assert_array_equal(t.sorted_ids_np, np.asarray(j.sorted_ids))
     np.testing.assert_array_equal(t.slots.numpy(), np.asarray(j.slots))
-    if with_owners:
-        np.testing.assert_array_equal(t.owners.numpy(), np.asarray(j.owners))
     q = np.concatenate([rng.integers(-5, 70, 200), [INVALID_ID]]).astype(np.int32)
     ts, th = t.lookup(torch.from_numpy(q))
     js, jh = j.lookup(jnp.asarray(q))

@@ -10,6 +10,8 @@ one; learning as ``tests/test_host_tier.py`` asks (last loss < 0.85 x the
 first).
 """
 
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,9 +59,13 @@ def _assemble_both(base, hot, budget, frontier, fmask):
     js = jstore.stage(frontier, fmask)
     ts = tstore.stage(frontier, fmask)
     assert (ts.count, ts.overflow) == (js.count, js.overflow)
-    assert ts.rows.shape == js.rows.shape and ts.slots.shape == js.slots.shape
-    np.testing.assert_array_equal(ts.rows.numpy(), np.asarray(js.rows))
-    np.testing.assert_array_equal(ts.slots.numpy(), np.asarray(js.slots))
+    # the port ships exactly the miss rows; JAX pads them to a static slab
+    # of zero rows at the spare slot L
+    m = ts.count
+    assert ts.rows.shape == (m, base.shape[1]) and ts.slots.shape == (m,)
+    np.testing.assert_array_equal(ts.rows.numpy(), np.asarray(js.rows)[:m])
+    np.testing.assert_array_equal(ts.slots.numpy(), np.asarray(js.slots)[:m])
+    assert not np.asarray(js.rows)[m:].any() and (np.asarray(js.slots)[m:] == len(frontier)).all()
     want = jax.jit(jht.assemble_features)(
         jstore.hot_tier, jnp.asarray(frontier), jnp.asarray(fmask), js.rows, js.slots
     )
@@ -85,7 +91,7 @@ def test_assemble_features_matches_oracle_and_jax(n_hot, budget, p_valid):
     np.testing.assert_array_equal(got, want)
     misses = int((fmask & ~np.isin(frontier, hot)).sum())
     assert ts.count == misses and ts.overflow == max(0, misses - budget)
-    assert ts.rows.shape[0] >= ts.count and ts.copy is None and ts.h2d_ms() is None
+    assert ts.rows.shape[0] == ts.count and ts.copy is None and ts.h2d_ms() is None
     assert gather.gather_rows.launches == 0
 
 
@@ -293,6 +299,34 @@ def test_pipelined_run_equals_sequential_run(host_struct, kind):
                                 torch.from_numpy(mk), dk)
         params.append({k: v.detach().clone() for k, v in model.state_dict().items()})
     assert all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+
+
+@pytest.mark.parametrize("host_struct", [False, True])
+def test_train_batches_releases_each_batch_s_staged_rows(host_struct):
+    """A batch's staged rows are freed once its compute step is queued:
+    device memory must not grow with the number of batches of a call."""
+    arrays, meta, hg = _problem(5)
+    fstore = tht.HostFeatureStore(arrays["features"], np.arange(50), 2048, device="cpu")
+    gstore = tht.HostCSCStore(hg, np.arange(0, 800, 3), 2048, deg_cap=8, device="cpu") if host_struct else None
+    tr = HostTierTrainer(model=TSAGE(12, 8, 4, 2, device="cpu"), fan_out=(3, 3), store=fstore,
+                         gstore=gstore, device="cpu")
+    refs, stage, compute_step = [], fstore.stage, tr.compute_step
+
+    def tracked_stage(*a):
+        staged = stage(*a)
+        refs.append(weakref.ref(staged.rows))
+        return staged
+
+    def checked_compute_step(*a):
+        b = len(refs) - 1  # the batch being computed; batch b+1 is not staged yet
+        assert all(r() is None for r in refs[:b]), "staged rows outlive their step"
+        return compute_step(*a)
+
+    fstore.stage, tr.compute_step = tracked_stage, checked_compute_step
+    graph = None if host_struct else hg.to_device("cpu")
+    metrics = tr.train_batches(graph, np.asarray(arrays["labels"], np.int32), _batches(arrays, 5, 32, 0), 2)
+    assert len(metrics) == len(refs) == 5 and all(m["stage_h2d_ms"] is None for m in metrics)
+    assert all(r() is None for r in refs)
 
 
 @pytest.mark.parametrize("host_struct", [False, True])
