@@ -102,18 +102,45 @@ weights from a seed.  Phases, one JSON line each:
     ``compute_step`` loop within 1e-5 after 6 batches; (d) every stage
     gathered through the native library built from the port's source; the
     device memory's peak over the 390 epoch batches stays within 1.25x
-    (+256 MiB) of its peak over the 12 timed ones.
+    (+256 MiB) of its peak over the 12 timed ones;
+15. weighted sampling, on the bench graph with |N(0, 1)| weights
+    (``make_synthetic_dataset(seed=0, with_probs=True)``'s): alias_tables
+    (the native ``build_alias`` timed, and equal bit for bit to the numpy
+    plain version on 2,001 rows; the native ``build_csc`` of
+    ``HostGraph.from_coo`` timed beside its numpy version on the graph's
+    edges in a random order, equal arrays); kernels_biased (K7, ``sample_biased``,
+    and K8, ``sample_biased_alias``, both modes each, held against their
+    plain versions on injected keys at edge shapes — degrees 0, 1, k, 2k,
+    2k + 1, 31–33, a hub of 100,000, an all-zero-weight row, zero weights,
+    padded seeds, int32 and int64 ``indptr``, k 5/10/15/40 — and at the
+    three hops of a weighted request: ids and mask equal except rows whose
+    k-th and (k+1)-th plain Gumbel keys lie within 2 ulp, counted and
+    printed; no zero-weight edge drawn; event, device and plain ms and the
+    byte bound); training_sage_biased (the SAGE bench config on the
+    weighted graph with alias tables under the port's ``tune_sampler_for``
+    caps: 8 timed steps, K8 three times a step, the overflow counters,
+    busy share and top kernels (an empty profile fails), the weighted and
+    the uniform step each under the padded and the tuned caps in turns,
+    8 requests, then 2 epochs and val_acc >= 0.99); host_tier_biased (the
+    host structure and features cell on the weighted graph: K8 on the hot
+    rows and K7 on the staged rows, card == CPU per hop under the same ulp
+    rule, 12 timed batches after 2 warm-up with the hub presampling's host
+    ms).
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.  Any
-failed check raises, and the script exits non-zero without the last line.
-It needs no network and imports nothing of JAX.
+Then the profiler's count of sessions that lost kernel records
+(``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
+K1, K2, K3, K3-bwd, K4, K5, the slot transpose, K7, K8, each with its
+device ms), the card's name and power limit as nvidia-smi gives them,
+and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
+the script exits non-zero without the last line.  It needs no network
+and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -293,7 +320,8 @@ def main() -> int:
     from dist_gnn_tpu_torch.cache.builder import build_cache_plan, compute_heats
     from dist_gnn_tpu_torch.cache.cost_model import calibrate, calibrate_host_staging
     from dist_gnn_tpu_torch.cache.policy import structure_space_bytes
-    from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
+    from dist_gnn_tpu_torch.cache.autotune import tune_sampler_for
+    from dist_gnn_tpu_torch.dataloading.preprocess import add_random_probs, make_synthetic_dataset
     from dist_gnn_tpu_torch.dataloading.seeds import SeedGenerator
     from dist_gnn_tpu_torch.graph import INVALID_ID, HostGraph
     from dist_gnn_tpu_torch.host_tier import HostCSCStore, HostFeatureStore, assemble_features, sample_staged_hop
@@ -316,12 +344,15 @@ def main() -> int:
 
     def device_ms(fn, kernel_name):
         """Mean device time of one launch of the named kernel while ``fn``
-        runs, from the profiler; None when it recorded no such kernel."""
+        runs, from the profiler; fails, naming what the profiler did
+        record, if it recorded none."""
         kernels, _ = profile_device(fn)
         hits = [v for k, v in kernels.items() if kernel_name in k]
-        return sum(ms for ms, _ in hits) / sum(n for _, n in hits) if hits else None
+        check(bool(hits), f"the profiler recorded no {kernel_name}: {sorted(k[:70] for k in kernels)[:12]}")
+        return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
 
-    counters = {"sample_uniform": sampling.sample_uniform,
+    counters = {"sample_uniform": sampling.sample_uniform, "sample_biased": sampling.sample_biased,
+                "sample_biased_alias": sampling.sample_biased_alias,
                 "gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
                 "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose, "gather_mean_bwd": gather.gather_mean_bwd,
                 "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
@@ -487,6 +518,266 @@ def main() -> int:
           "library": "none: no one PyTorch call samples a CSC graph",
           "sample_blocks": sample_stage, **k6, **card})
 
+    # ---- 3b. weighted (biased) sampling: alias tables, K7 and K8 ----------
+    # the bench graph with |N(0, 1)| weights: add_random_probs(E, 0) is what
+    # make_synthetic_dataset(seed=0, with_probs=True) attaches to this graph
+    probs_np = add_random_probs(hg.num_edges, 0)
+    hg_w = HostGraph(indptr=hg.indptr, indices=hg.indices, probs=probs_np)
+    indptr64 = hg.indptr.astype(np.int64)
+    t0 = time.perf_counter()
+    ap_np, ai_np = native.build_alias(hg.indptr, probs_np)
+    alias_ms = (time.perf_counter() - t0) * 1e3
+    # the native tables equal the numpy plain version's, bit for bit, on the
+    # first 2,000 rows and the longest (each row's table is its own)
+    deg64 = np.diff(indptr64)
+    chk_rows = np.concatenate([np.arange(2000), [int(np.argmax(deg64))]]).astype(np.int32)
+    sp, _, spr = native.extract_subcsc(chk_rows, hg.indptr, hg.indices, probs_np)
+    pp, pa = native.build_alias_plain(sp, spr)
+    sel_e = np.concatenate([np.arange(indptr64[r], indptr64[r + 1]) for r in chk_rows])
+    check(np.array_equal(pp.view(np.int32), ap_np[sel_e].view(np.int32)) and np.array_equal(pa, ai_np[sel_e]),
+          "alias tables: native differs from the numpy plain version")
+    probs_dev = torch.from_numpy(probs_np).to(cuda)
+    graph_k7 = dataclasses.replace(graph, probs=probs_dev)  # weighted, no tables: K7
+    graph_w = dataclasses.replace(graph_k7, alias_prob=torch.from_numpy(ap_np).to(cuda),
+                                  alias_idx=torch.from_numpy(ai_np).to(cuda))  # K8
+    # HostGraph.from_coo's native build_csc against its numpy version, on
+    # the weighted bench graph's edges in a random order: equal arrays
+    perm = np.random.default_rng(1).permutation(hg.num_edges)
+    coo = (np.repeat(np.arange(hg.num_nodes, dtype=np.int32), deg64)[perm], hg.indices[perm], probs_np[perm])
+    del perm
+    t0 = time.perf_counter()
+    csc_native = native.build_csc(coo[0], coo[1], hg.num_nodes, coo[2])
+    csc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    csc_plain = native.build_csc_plain(coo[0], coo[1], hg.num_nodes, coo[2])
+    csc_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(csc_native, csc_plain)),
+          "build_csc: native differs from the numpy version")
+    del coo, csc_native, csc_plain
+    emit({"phase": "alias_tables", "num_nodes": hg.num_nodes, "num_edges": hg.num_edges,
+          "max_degree": int(deg64.max()), "zero_weight_edges": int((probs_np == 0).sum()),
+          "build_alias_host_ms": alias_ms, "rows_checked_against_plain": len(chk_rows),
+          "edges_checked": len(sel_e), "exact": True,
+          "build_csc_host_ms": csc_ms, "build_csc_numpy_ms": csc_plain_ms, "build_csc_equal": True, **card})
+
+    def gumbel_sorted(w_row, bits_row):
+        """A row's Gumbel keys (the plain versions' arithmetic), sorted
+        descending, as float32 numpy."""
+        w_t = torch.from_numpy(np.asarray(w_row, np.float32))
+        return torch.sort(sampling.gumbel_keys(bits_row.cpu(), w_t, torch.ones_like(w_t, dtype=torch.bool)),
+                          descending=True).values.numpy()
+
+    def near_tie(keys_sorted, k):
+        """Whether the k-th and (k+1)-th keys lie within 2 ulp: the only
+        rows where the card's log may reorder a pick."""
+        if len(keys_sorted) <= k or not np.isfinite(keys_sorted[k]):
+            return False
+        a, b = keys_sorted[k - 1], keys_sorted[k]
+        return bool(abs(a - b) <= 2 * np.spacing(np.float32(abs(a))))
+
+    def compare_weighted(name, got, want, tie_ok):
+        """Ids and mask equal, except rows ``tie_ok(row)`` names near-ties;
+        returns their count."""
+        bad = ((got.ids != want.ids) | (got.mask != want.mask)).any(1).nonzero().flatten().tolist()
+        for r in bad:
+            check(tie_ok is not None and tie_ok(r), f"{name}: row {r} differs from the plain version")
+        check(int(torch.as_tensor(got.overflow)) == int(torch.as_tensor(want.overflow)),
+              f"{name}: overflow {int(torch.as_tensor(got.overflow))} vs plain {int(torch.as_tensor(want.overflow))}")
+        return len(bad)
+
+    def row_span(g_ip, seed):
+        lo, hi = int(g_ip[seed]), int(g_ip[seed + 1])
+        return lo, hi - lo
+
+    def k7_tie(g_ip, g_probs, seeds_np, row_keys, k):
+        def ok(r):
+            if seeds_np[r] == INVALID_ID:
+                return False
+            lo, d = row_span(g_ip, seeds_np[r])
+            bits = prng.mix32(row_keys[r].cpu() ^ prng.mix32(torch.arange(d)))
+            return near_tie(gumbel_sorted(g_probs[lo:lo + d], bits), k)
+        return ok
+
+    def k8_tie(g_ip, g_probs, seeds_np, gum, k):
+        def ok(r):
+            if seeds_np[r] == INVALID_ID:
+                return False
+            lo, d = row_span(g_ip, seeds_np[r])
+            return d <= 2 * k and near_tie(gumbel_sorted(g_probs[lo:lo + d], gum[r, :d]), k)
+        return ok
+
+    def alias_key_set(B, kk, replace, gen):
+        bits = prng.random_keys(gen, (2, B, kk if replace else 4 * kk), cuda)
+        return bits if replace else (bits, prng.random_keys(gen, (B, 2 * kk), cuda))
+
+    # K7 and K8 at edge shapes: degrees 0, 1, k, 2k, 2k + 1, 31-33, a hub
+    # of 100,000, an all-zero-weight row, a tenth of the weights 0, padded
+    # seeds; int32 and int64 indptr; both modes of each
+    wrng = np.random.default_rng(8)
+    wgen = torch.Generator().manual_seed(9)
+    w_edge_rows, w_ties = [], {"K7": 0, "K8": 0}
+    for kk in (5, 10, 15, 40):
+        degs = [0, 1, kk, 2 * kk, 2 * kk + 1, 31, 32, 33, 100_000, 50] + list(wrng.integers(0, 80, 2000))
+        n_e = len(degs) + 10
+        e_dst = np.repeat(np.arange(len(degs)), degs)
+        e_w = np.abs(wrng.standard_normal(len(e_dst))).astype(np.float32)
+        e_w[wrng.random(len(e_w)) < 0.1] = 0
+        e_ip = np.concatenate([[0], np.cumsum(degs)])
+        e_w[e_ip[9]:e_ip[10]] = 0  # all zero
+        ehg = HostGraph.from_coo(wrng.integers(0, n_e, len(e_dst)), e_dst, n_e, probs=e_w)
+        e_seeds = np.concatenate([np.arange(len(degs)), wrng.integers(0, n_e, 3000)]).astype(np.int32)
+        e_seeds[::7] = INVALID_ID
+        e_st = torch.from_numpy(e_seeds).to(cuda)
+        B = len(e_seeds)
+        for ip_dtype in (np.int32, np.int64):
+            eg = HostGraph(indptr=ehg.indptr.astype(ip_dtype), indices=ehg.indices,
+                           probs=ehg.probs).to_device(cuda, with_alias=True)
+            ip_np = ehg.indptr.astype(np.int64)
+            for replace in (False, True):
+                key = prng.random_keys(wgen, (B, kk) if replace else (B,), cuda)
+                n7 = compare_weighted(f"K7 edge k={kk} {ip_dtype.__name__} replace={replace}",
+                                      sampling.sample_biased(eg, e_st, kk, replace, key),
+                                      sampling.sample_biased_plain(eg, e_st, kk, replace, key),
+                                      None if replace else k7_tie(ip_np, ehg.probs, e_seeds, key, kk))
+                akey = alias_key_set(B, kk, replace, wgen)
+                got8 = sampling.sample_biased_alias(eg, e_st, kk, replace, akey)
+                n8 = compare_weighted(f"K8 edge k={kk} {ip_dtype.__name__} replace={replace}", got8,
+                                      sampling.sample_biased_alias_plain(eg, e_st, kk, replace, akey),
+                                      None if replace else k8_tie(ip_np, ehg.probs, e_seeds, akey[1].cpu(), kk))
+                torch.cuda.synchronize()
+                w_ties["K7"] += n7
+                w_ties["K8"] += n8
+                w_edge_rows.append({"k": kk, "indptr": ip_dtype.__name__, "replace": replace,
+                                    "near_tie_rows_k7": n7, "near_tie_rows_k8": n8,
+                                    "k8_overflow": int(got8.overflow)})
+    for fn in (sampling.sample_biased, sampling.sample_biased_alias):  # an edgeless graph launches nothing
+        before = fn.launches
+        eg0 = HostGraph(indptr=np.zeros(5, np.int32), indices=np.zeros(0, np.int32),
+                        probs=np.zeros(0, np.float32)).to_device(cuda, with_alias=True)
+        got = fn(eg0, torch.arange(3, dtype=torch.int32, device=cuda), 4, False, torch.Generator(device=cuda))
+        check(not bool(got.mask.any()) and fn.launches == before, f"{fn.__name__} on an edgeless graph")
+
+    # the main path's hops: a weighted request's three hop seed sets
+    blocks_w, _ = sample_blocks(graph_w, seeds, mask, FAN_OUT, False,
+                                torch.Generator(device=cuda).manual_seed(13), dedup_last=False)
+    # positive-weight (row, neighbour) pairs, to show no zero-weight edge is drawn
+    edge_row = torch.repeat_interleave(torch.arange(hg.num_nodes, device=cuda),
+                                       torch.from_numpy(deg64).to(cuda))
+    pos_pairs = torch.unique(edge_row[probs_dev > 0] * hg.num_nodes + graph.indices[probs_dev > 0].long())
+
+    def positive_only(s_hop, out):
+        rows = s_hop.long()[:, None].expand_as(out.ids)[out.mask]
+        pair = rows * hg.num_nodes + out.ids[out.mask].long()
+        idx = torch.clamp(torch.searchsorted(pos_pairs, pair), max=pos_pairs.numel() - 1)
+        return bool((pos_pairs[idx] == pair).all())
+
+    def sectors(base_ptr, elem, positions):
+        return int(torch.unique((base_ptr + elem * positions) // 32).numel())
+
+    def span_sectors(base_ptr, elem, lo, n):
+        """Distinct 32-byte sectors of the element spans [lo, lo + n)."""
+        lo, n = lo[n > 0], n[n > 0]
+        if lo.numel() == 0:
+            return 0
+        first = (base_ptr + elem * lo) // 32
+        last = (base_ptr + elem * (lo + n) - 1) // 32
+        s0 = int(first.min())
+        diff = torch.zeros(int(last.max()) - s0 + 2, dtype=torch.int32, device=cuda)
+        diff.index_add_(0, first - s0, torch.ones_like(first, dtype=torch.int32))
+        diff.index_add_(0, last - s0 + 1, -torch.ones_like(last, dtype=torch.int32))
+        return int((torch.cumsum(diff, 0) > 0).sum())
+
+    rkgen = torch.Generator(device=cuda).manual_seed(14)
+    k7_hops, k8_hops = [], []
+    k7_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
+    k8_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
+    ip_ptr, ip_sz = graph.indptr.data_ptr(), graph.indptr.element_size()
+    for i, (blk, kk) in enumerate(zip(blocks_w, reversed(FAN_OUT))):
+        s_hop = blk.seeds
+        B = s_hop.shape[0]
+        s_np = s_hop.cpu().numpy()
+        valid = s_hop != INVALID_ID
+        safe_s = torch.where(valid, s_hop, 0).long()
+        lo = graph.indptr[safe_s].long()
+        dg = torch.where(valid, graph.indptr[safe_s + 1].long() - lo, 0)
+        ptr_sec = sectors(ip_ptr, ip_sz, torch.cat([safe_s[valid], safe_s[valid] + 1]))
+        # K7: both modes checked, the main path's (without replacement) timed
+        for replace in (True, False):
+            key7 = prng.random_keys(rkgen, (B, kk) if replace else (B,), cuda)
+            got7 = sampling.sample_biased(graph_k7, s_hop, kk, replace, key7)
+            n7 = compare_weighted(f"K7 hop {i} replace={replace}", got7,
+                                  sampling.sample_biased_plain(graph_k7, s_hop, kk, replace, key7),
+                                  None if replace else k7_tie(indptr64, probs_np, s_np, key7, kk))
+            check(positive_only(s_hop, got7), f"K7 hop {i} replace={replace}: drew a zero-weight edge")
+        pos7, m7 = sampling.sample_biased_positions(graph_k7, s_hop, kk, False, key7)
+        bytes7 = (span_sectors(probs_dev.data_ptr(), 4, lo[valid], dg[valid])
+                  + sectors(graph.indices.data_ptr(), 4, pos7[m7]) + ptr_sec) * 32 + B * (4 + 8) + B * kk * 5
+        hop7 = {"hop": i, "B": B, "k": kk, "near_tie_rows": n7, "valid_slots": int(got7.mask.sum()),
+                "edges_read": int(dg.sum()), "bytes": bytes7, "bound_ms": bytes7 / HBM_BYTES_PER_S * 1e3,
+                "ms": cuda_time_ms(lambda: sampling.sample_biased(graph_k7, s_hop, kk, False, key7)),
+                "device_ms": device_ms(lambda: sampling.sample_biased(graph_k7, s_hop, kk, False, key7),
+                                             "sample_biased_topk_kernel"),
+                "plain_ms": cuda_time_ms(lambda: sampling.sample_biased_plain(graph_k7, s_hop, kk, False, key7),
+                                         iters=3, warmup=1)}
+        # K8: both modes checked, without replacement timed
+        for replace in (True, False):
+            key8 = alias_key_set(B, kk, replace, rkgen)
+            got8 = sampling.sample_biased_alias(graph_w, s_hop, kk, replace, key8)
+            n8 = compare_weighted(f"K8 hop {i} replace={replace}", got8,
+                                  sampling.sample_biased_alias_plain(graph_w, s_hop, kk, replace, key8),
+                                  None if replace else k8_tie(indptr64, probs_np, s_np, key8[1].cpu(), kk))
+            check(positive_only(s_hop, got8), f"K8 hop {i} replace={replace}: drew a zero-weight edge")
+        pos8, m8, _ = sampling.sample_biased_alias_positions(graph_w, s_hop, kk, False, key8)
+        # what K8 reads: a short row's weights, and its keys only at offsets
+        # below the degree with a positive weight; a long row's 4k bit
+        # pairs, alias_prob at each draw, and alias_idx only at the draws
+        # whose uniform is not below alias_prob (the rejected ones)
+        dense = valid & (dg <= 2 * kk)
+        sparse = valid & (dg > 2 * kk)
+        bits8, gum8 = key8
+        draws = lo[sparse][:, None] + (bits8[0][sparse] % dg[sparse][:, None])
+        rejected = ~(prng.bits_to_uniform(bits8[1][sparse]) < graph_w.alias_prob[draws])
+        offs = torch.arange(2 * kk, device=cuda)
+        key_read = dense[:, None] & (offs[None, :] < dg[:, None])
+        key_read &= probs_dev[torch.where(key_read, lo[:, None] + offs, 0)] > 0
+        key_pos = (torch.arange(B, device=cuda)[:, None] * (2 * kk) + offs)[key_read]
+        bit_pos = (sparse.nonzero().flatten()[:, None] * (4 * kk) + torch.arange(4 * kk, device=cuda)).flatten()
+        bytes8 = (span_sectors(probs_dev.data_ptr(), 4, lo[dense], dg[dense])
+                  + sectors(gum8.data_ptr(), 8, key_pos)
+                  + sectors(bits8.data_ptr(), 8, torch.cat([bit_pos, bit_pos + B * 4 * kk]))
+                  + sectors(graph_w.alias_prob.data_ptr(), 4, draws.flatten())
+                  + sectors(graph_w.alias_idx.data_ptr(), 4, draws[rejected])
+                  + sectors(graph.indices.data_ptr(), 4, pos8[m8]) + ptr_sec) * 32 \
+            + B * 4 + B * kk * 5 + 4
+        hop8 = {"hop": i, "B": B, "k": kk, "near_tie_rows": n8, "valid_slots": int(got8.mask.sum()),
+                "dense_rows": int(dense.sum()), "sparse_rows": int(sparse.sum()), "overflow": int(got8.overflow),
+                "keys_read": int(key_read.sum()), "draws": int(draws.numel()),
+                "alias_idx_reads": int(rejected.sum()), "bytes": bytes8, "bound_ms": bytes8 / HBM_BYTES_PER_S * 1e3,
+                "ms": cuda_time_ms(lambda: sampling.sample_biased_alias(graph_w, s_hop, kk, False, key8)),
+                "device_ms": device_ms(lambda: sampling.sample_biased_alias(graph_w, s_hop, kk, False, key8),
+                                             "sample_biased_alias_kernel"),
+                "plain_ms": cuda_time_ms(lambda: sampling.sample_biased_alias_plain(graph_w, s_hop, kk, False, key8),
+                                         iters=3, warmup=1)}
+        torch.cuda.synchronize()
+        for acc, hop in ((k7_sum, hop7), (k8_sum, hop8)):
+            for key_ in acc:
+                check(hop[key_] is not None, f"hop {i}: no {key_}")
+                acc[key_] += hop[key_]
+        k7_hops.append(hop7)
+        k8_hops.append(hop8)
+    k7 = {"name": "sample_biased", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
+          "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:671",
+          "max_abs_err": 0.0, **k7_sum, "bound_by": "bytes", "library_ms": None}
+    k8 = {"name": "sample_biased_alias", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
+          "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:764",
+          "max_abs_err": 0.0, **k8_sum, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "kernels_biased", "times_are": "sums over the three hops of one weighted request "
+          "(without replacement; both modes checked)", "k7_hops": k7_hops, "k8_hops": k8_hops,
+          "edge_rows": w_edge_rows, "near_tie_rows": w_ties, "exact_but_near_ties": True,
+          "zero_weight_edges_drawn": 0, "library": "none: no one PyTorch call samples a weighted CSC graph",
+          "k7": {k: k7[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms")},
+          "k8": {k: k8[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms")}, **card})
+
     # ---- 4. K1, K2 and K3 against their plain versions --------------------
     safe = torch.where(blocks[-1].frontier_mask, blocks[-1].frontier, 0)
     L = safe.shape[0]
@@ -529,6 +820,7 @@ def main() -> int:
         "max_abs_err": max_abs(out, ref), "ms": main_k1["k1"]["ms"],
         "plain_ms": cuda_time_ms(lambda: gather.gather_rows_plain(features, safe)),
         "bound_ms": main_k1["bound_ms"], "bound_by": "bytes", "library_ms": main_k1["index_select"]["ms"],
+        "device_ms": main_k1["k1"]["device_ms"],
     }
     emit({"phase": "kernel", "kernel": "K1 gather_rows", "shape": [hg.num_nodes, 100, L],
           "dtype": "bfloat16", "exact": True, "bytes": main_k1["bytes"], "device_ms": main_k1["k1"]["device_ms"],
@@ -619,7 +911,8 @@ def main() -> int:
     prim = k2_shapes["bench_bf16"]
     k2 = {"name": "gather_rows_dma", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
           "replaces": "dist_gnn_tpu/ops/gather_pallas.py:211", "max_abs_err": 0.0,
-          **{key: prim[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}, "bound_by": "bytes"}
+          **{key: prim[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms")},
+          "bound_by": "bytes"}
     emit({"phase": "kernel", "kernel": "K2 gather_rows_dma", "exact": True,
           "times_are": "the bench_bf16 shape; every shape in 'shapes'", "shapes": k2_shapes,
           "oversized_rows_per_step_raises": too_big, "smem_optin_bytes": gather.smem_optin_bytes(cuda),
@@ -708,10 +1001,11 @@ def main() -> int:
         prof_reqs = 4
         kernels, prof_wall = profile_device(
             lambda: tr.eval_step(None, graph, features, labels, *requests[1]), iters=prof_reqs)
+        check(bool(kernels), "serving: the profiler recorded no device activity")
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
         return {"stage_ms_per_request": {k: v / N_REQUESTS * 1e3 for k, v in stage_s.items()},
                 "profiled_ms_per_request": prof_wall / prof_reqs,
-                "device_busy_share": sum(ms for ms, _ in kernels.values()) / prof_wall if kernels else None,
+                "device_busy_share": sum(ms for ms, _ in kernels.values()) / prof_wall,
                 "device_kernels_per_request": sum(n for _, n in kernels.values()) / prof_reqs,
                 "top_kernels_ms_per_request": [[k[:80], ms / prof_reqs, n / prof_reqs]
                                                for k, (ms, n) in top]}
@@ -750,6 +1044,7 @@ def main() -> int:
         del out_full
         full_kernels, full_prof_ms = profile_device(
             lambda: full_graph_inference(m, None, hg, features, device=cuda), iters=1)
+        check(bool(full_kernels), f"{name}: the profiler recorded no device activity")
         full_top = sorted(full_kernels.items(), key=lambda kv: -kv[1][0])[:6]
         got = full_graph_inference(m, None, shg, sfeat, device=cuda)
         want = full_graph_inference(copy.deepcopy(m).to("cpu"), None, shg, sfeat, device="cpu")
@@ -758,8 +1053,7 @@ def main() -> int:
         emit({"phase": name, "num_nodes": hg.num_nodes, "num_edges": hg.num_edges,
               "seconds": full_s, "edges_per_s": len(FAN_OUT) * hg.num_edges / full_s,
               "launches": full_launches, "profiled_s": full_prof_ms / 1e3,
-              "device_busy_share": sum(ms for ms, _ in full_kernels.values()) / full_prof_ms
-              if full_kernels else None,
+              "device_busy_share": sum(ms for ms, _ in full_kernels.values()) / full_prof_ms,
               "top_kernels_ms": [[k[:80], ms, n] for k, (ms, n) in full_top],
               "check_nodes": shg.num_nodes,
               "check_rel_err_vs_cpu": small_err, **card})
@@ -769,10 +1063,11 @@ def main() -> int:
     # ---- 7. K3 backward, K4 and K5 against their plain versions ---------
     def call_device_ms(fn, names, iters=10):
         """Device ms per call of ``fn`` in the kernels whose names contain
-        one of ``names``, from the profiler; None if it recorded none."""
+        one of ``names``, from the profiler; fails if it recorded none."""
         kernels, _ = profile_device(fn, iters=iters)
         hits = [ms for k, (ms, _) in kernels.items() if any(n in k for n in names)]
-        return sum(hits) / iters if hits else None
+        check(bool(hits), f"the profiler recorded none of {names}")
+        return sum(hits) / iters
 
     kgen = torch.Generator(device=cuda).manual_seed(3)
     sage_blocks = list(reversed(blocks))  # input-first, as the model sees them
@@ -946,8 +1241,8 @@ def main() -> int:
     emit({"phase": "gat_plan", "num_sms": num_sms, "layers": gat_plans,
           "hmma_per_kernel": hmma, "hmma_from": "cuobjdump -sass of the built libgat", **card})
     k4_layers, k5_layers = [], []
-    k4_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    k5_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    k4_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0}
+    k5_sum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0}
     k4_err = k5_err = 0.0
     k4_flop_bound = k5_flop_bound = True
     for l, blk in enumerate(sage_blocks):
@@ -1027,6 +1322,7 @@ def main() -> int:
                 "device_ms_dw_kernel": call_device_ms(lambda: gat_ops.gat_bwd(*bwd_args), ["gat_dw_"])}
         for acc, lay in ((k4_sum, lay4), (k5_sum, lay5)):
             for key in acc:
+                check(lay[key] is not None, f"layer {l}: no {key} for K4/K5")
                 acc[key] += lay[key]
         k4_layers.append(lay4)
         k5_layers.append(lay5)
@@ -1190,6 +1486,8 @@ def main() -> int:
         s1, mk1 = train_batches[1]
         kern, prof_wall = profile_device(
             lambda: tr.train_step(graph, features, labels, s1, mk1, tgen), iters=prof_steps)
+        check(bool(kern), f"{name}: the profiler recorded no device activity")
+        kept_share = profile_device.kept_share
         busy = sum(ms for ms, _ in kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
         emit({"phase": name, "steps": N_STEPS, "batch": BATCH, "ms_per_step": step_s * 1e3,
@@ -1198,7 +1496,7 @@ def main() -> int:
               "launches_per_step": {k: v / N_STEPS for k, v in launches.items()}, **checked,
               "stage_ms_per_step": {k: v / N_STEPS * 1e3 for k, v in stage.items()},
               "profiled_ms_per_step": prof_wall / prof_steps,
-              "device_busy_share": busy / prof_wall if kern else None,
+              "device_busy_share": busy / prof_wall, "profiler_kept_share": kept_share,
               "device_kernels_per_step": sum(n for _, n in kern.values()) / prof_steps,
               "top_kernels_ms_per_step": [[k[:80], ms / prof_steps, n / prof_steps]
                                           for k, (ms, n) in top], **card})
@@ -1357,6 +1655,114 @@ def main() -> int:
           "full_graph_inference_s": infer_s, "val_acc": val_acc, "val_acc_min": VAL_ACC_MIN,
           "script_s_so_far": total_s, "share_of_script": (conv_s + infer_s) / total_s, **card})
 
+    # ---- 13b. weighted SAGE training and serving ----------------------------
+    # SAGE at the bench config on the weighted graph with alias tables (K8
+    # per hop), under the frontier caps of the port's tuner
+    t0 = time.perf_counter()
+    caps = tune_sampler_for(hg, arrays["train_idx"], BATCH, FAN_OUT).frontier_caps
+    tune_s = time.perf_counter() - t0
+    def bench_sage(seed):
+        return SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(seed), device=cuda)
+
+    wsage = bench_sage(21)
+    wtr = Trainer(model=wsage, fan_out=FAN_OUT, dedup_last=False, frontier_caps=caps, device=cuda)
+    wgen_t = torch.Generator(device=cuda).manual_seed(22)
+    wtr.train_step(graph_w, features, labels, *train_batches[0], wgen_t)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    wmets = [wtr.train_step(graph_w, features, labels, s, mk, wgen_t) for s, mk in train_batches[1:]]
+    torch.cuda.synchronize()
+    wstep_s = (time.perf_counter() - t0) / N_STEPS
+    wlaunch = read_counts()
+    want = {**dict.fromkeys(counters, 0), "sample_biased_alias": 3, "gather_rows": 1, "gather_mean": 3,
+            "slot_transpose": 2, "gather_mean_bwd": 2}
+    check(wlaunch == {k: v * N_STEPS for k, v in want.items()}, f"training_sage_biased launches {wlaunch}")
+    k8["launches"] = wlaunch["sample_biased_alias"]
+    wlosses = [float(m_["loss"]) for m_ in wmets]
+    check(all(np.isfinite(wlosses)), "training_sage_biased: loss not finite")
+    egen = torch.Generator(device=cuda).manual_seed(23)
+    wedges = sum(int(b.neigh_mask.sum()) for s, mk in train_batches[1:]
+                 for b in sample_blocks(graph_w, s, mk, FAN_OUT, False, egen, frontier_caps=caps,
+                                        dedup_last=False)[0]) / N_STEPS
+    wkern, wprof = profile_device(lambda: wtr.train_step(graph_w, features, labels, *train_batches[1], wgen_t),
+                                  iters=3)
+    check(bool(wkern), "training_sage_biased: the profiler recorded no device activity")
+    wkept = profile_device.kept_share
+    wtop = sorted(wkern.items(), key=lambda kv: -kv[1][0])[:10]
+    # the weighted step beside the uniform one, each under the padded and
+    # the tuned caps: rounds of 8 steps in turns (median ms per step), then
+    # one profiled call of 3 steps each (device ms and kernels per step)
+    cmp_cfgs = {"uniform_padded": (graph, None), "uniform_tuned": (graph, caps),
+                "weighted_padded": (graph_w, None), "weighted_tuned": (graph_w, caps)}
+    cmp_tr = {name: Trainer(model=bench_sage(30 + j), fan_out=FAN_OUT, dedup_last=False, frontier_caps=c,
+                            device=cuda) for j, (name, (_, c)) in enumerate(cmp_cfgs.items())}
+    cmp_gen = torch.Generator(device=cuda).manual_seed(27)
+    cmp_ms = {name: [] for name in cmp_cfgs}
+    for rnd in range(6):
+        for name, (g_, _) in cmp_cfgs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s, mk in train_batches[1:]:
+                cmp_tr[name].train_step(g_, features, labels, s, mk, cmp_gen)
+            torch.cuda.synchronize()
+            if rnd:  # the first round warms up
+                cmp_ms[name].append((time.perf_counter() - t0) / N_STEPS * 1e3)
+    step_compare = {}
+    for name, (g_, _) in cmp_cfgs.items():
+        ck, cwall = profile_device(
+            lambda tr_=cmp_tr[name], g_=g_: tr_.train_step(g_, features, labels, *train_batches[1], cmp_gen), iters=3)
+        check(bool(ck), f"step_compare {name}: the profiler recorded no device activity")
+        step_compare[name] = {"ms_per_step_median": float(np.median(cmp_ms[name])), "ms_per_step_rounds": cmp_ms[name],
+                              "profiled_ms_per_step": cwall / 3,
+                              "device_ms_per_step": sum(ms for ms, _ in ck.values()) / 3,
+                              "device_kernels_per_step": sum(n for _, n in ck.values()) / 3,
+                              "profiler_kept_share": profile_device.kept_share}
+    # one serving request: eval_step on 8 batches of validation seeds
+    wtr.eval_step(None, graph_w, features, labels, requests[0][0], requests[0][1], wgen_t)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    wans = [wtr.eval_step(None, graph_w, features, labels, s, mk, wgen_t) for s, mk, _ in requests]
+    torch.cuda.synchronize()
+    wserve_ms = (time.perf_counter() - t0) / N_REQUESTS * 1e3
+    wserve_launch = read_counts()
+    check(wserve_launch["sample_biased_alias"] == 3 * N_REQUESTS and sum(int(n) for _, n in wans) == N_REQUESTS * BATCH,
+          f"weighted serving: {wserve_launch}")
+    # 2 epochs, then the full-graph validation accuracy
+    wconv = bench_sage(24)
+    wctr = Trainer(model=wconv, fan_out=FAN_OUT, dedup_last=False, frontier_caps=caps, device=cuda)
+    wcgen = torch.Generator(device=cuda).manual_seed(25)
+    t0 = time.perf_counter()
+    n_wc, w_sovf, w_fovf = 0, 0, 0
+    for ep in range(CONV_EPOCHS):
+        for s, mk in conv_seeds.epoch(torch.Generator(device=cuda).manual_seed(210 + ep)):
+            wm = wctr.train_step(graph_w, features, labels, s, mk, wcgen)
+            w_sovf = w_sovf + wm["sampler_overflow"]
+            w_fovf = w_fovf + wm["frontier_overflow"]
+            n_wc += 1
+    torch.cuda.synchronize()
+    wconv_s = time.perf_counter() - t0
+    w_logits = full_graph_inference(wconv, None, hg, features, device=cuda)
+    w_val = float((torch.argmax(w_logits, dim=-1)[vid] == labels[vid]).float().mean())
+    check(w_val >= VAL_ACC_MIN, f"weighted val_acc {w_val} below {VAL_ACC_MIN}")
+    emit({"phase": "training_sage_biased", "frontier_caps": list(caps), "tune_sampler_s": tune_s,
+          "padded_caps": layer_capacities(BATCH, FAN_OUT)[1:], "steps": N_STEPS, "batch": BATCH,
+          "ms_per_step": wstep_s * 1e3, "trained_edges_per_s": wedges / wstep_s, "valid_edges_per_step": wedges,
+          "losses": wlosses, "launches_per_step": {k: v / N_STEPS for k, v in wlaunch.items() if v},
+          "sampler_overflow_per_step": [int(m_["sampler_overflow"]) for m_ in wmets],
+          "frontier_overflow_per_step": [int(m_["frontier_overflow"]) for m_ in wmets],
+          "profiled_ms_per_step": wprof / 3,
+          "device_busy_share": sum(ms for ms, _ in wkern.values()) / wprof,
+          "device_kernels_per_step": sum(n for _, n in wkern.values()) / 3, "profiler_kept_share": wkept,
+          "top_kernels_ms_per_step": [[k[:80], ms / 3, n / 3] for k, (ms, n) in wtop],
+          "step_compare": step_compare,
+          "serving_ms_per_request": wserve_ms, "serving_launches": {k: v for k, v in wserve_launch.items() if v},
+          "epochs": CONV_EPOCHS, "epoch_steps": n_wc, "train_s": wconv_s,
+          "epochs_sampler_overflow": int(w_sovf), "epochs_frontier_overflow": int(w_fovf),
+          "val_acc": w_val, "val_acc_min": VAL_ACC_MIN, **card})
+
     # ---- 14. the host-resident tiers -----------------------------------------
     # features (and structure) in host memory, hot rows on the card, misses
     # staged per batch through pinned slabs (host_tier.py, HostTierTrainer)
@@ -1461,7 +1867,8 @@ def main() -> int:
         if "struct_miss" in mets[0]:
             extra = {**extra, "struct_miss_per_batch": float(np.mean([m["struct_miss"] for m in mets])),
                      "struct_overflow": sum(m["struct_overflow"] for m in mets),
-                     "struct_plan_ms": float(np.mean([m["struct_plan_ms"] for m in mets]))}
+                     "struct_plan_ms": float(np.mean([m["struct_plan_ms"] for m in mets])),
+                     "struct_presample_ms": float(np.mean([m["struct_presample_ms"] for m in mets]))}
         return {"batches": N_TIMED, "ms_per_batch": dt * 1e3, "trained_edges_per_s": edges / dt,
                 "valid_edges_per_batch": edges, "feat_miss_rows_per_batch": miss,
                 "feat_overflow": sum(m["feat_overflow"] for m in mets),
@@ -1598,10 +2005,95 @@ def main() -> int:
           "epochs_peak_MiB_over_start": epoch_peak_mb, "epochs_end_MiB_over_start": epoch_end_mb,
           "val_acc": h_val, "val_acc_min": VAL_ACC_MIN, **card})
 
+    # ---- 14b. the host-resident tiers on the weighted graph ------------------
+    # the host-structure-and-features cell on the weighted graph: K8 on the
+    # hot rows, K7 on the staged rows, hub rows Gumbel-presampled on the host
+    w_capacity = int(0.2 * (hg.indptr.nbytes + hg.indices.nbytes + probs_np.nbytes + feats_host.nbytes))
+    t0 = time.perf_counter()
+    w_mode, ws_plan, wf_plan = build_cache_plan(hg_w, F_DIM, [arrays["train_idx"]], FAN_OUT, w_capacity,
+                                                policy="auto", cost=cm, device=cuda)
+    w_plan_ms = (time.perf_counter() - t0) * 1e3
+    ws_hot = ws_plan[0][ws_plan[0] != INVALID_ID]
+    wf_hot = wf_plan[0][wf_plan[0] != INVALID_ID]
+    wgstore = HostCSCStore(hg_w, ws_hot, miss_budget=front_cap, deg_cap=128, device=cuda)
+    wfstore = HostFeatureStore(feats_host, wf_hot, miss_budget=front_cap, device=cuda)
+    # each hop of sample_staged_hop on the card equals the CPU's (the ulp
+    # rule on K7's and K8's Gumbel rows), with injected keys and one hub
+    # seed; the plan may cache no weighted structure (weights make a row
+    # dearer), so this check takes the 5% of nodes of highest degree as the
+    # hot structure, and K8 samples their rows
+    top_deg = np.argpartition(deg64, -(hg.num_nodes // 20))[-(hg.num_nodes // 20):].astype(np.int32)
+    chk_stores = [HostCSCStore(hg_w, top_deg, miss_budget=front_cap, deg_cap=128, device=dev)
+                  for dev in (cuda, "cpu")]
+    hot_alias = chk_stores[0].hot_graph.alias_prob is not None
+    check(hot_alias, "host_tier_biased: the check's hot structure has no alias tables")
+    hkgen = torch.Generator().manual_seed(305)
+    seeds_h, mask_h = host_batches[0][0], host_batches[0][1]
+    w_hop_rows = []
+    for i, kk in enumerate(reversed(FAN_OUT)):
+        loc_g, st_g = chk_stores[0].plan_hop(seeds_h, mask_h, kk, np.random.default_rng(50 + i))
+        loc_c, st_c = chk_stores[1].plan_hop(seeds_h, mask_h, kk, np.random.default_rng(50 + i))
+        L = len(seeds_h)
+        hot_key = (alias_key_set(L, kk, False, hkgen) if hot_alias
+                   else prng.random_keys(hkgen, (L,)))
+        hot_key = tuple(x.cpu() for x in hot_key) if hot_alias else hot_key
+        stg_key = prng.random_keys(hkgen, (st_c.count,))
+        reset_counts()
+        nb_g = sample_staged_hop(chk_stores[0].hot_graph, torch.from_numpy(loc_g).to(cuda), st_g, kk,
+                                 (tuple(x.to(cuda) for x in hot_key) if hot_alias else hot_key.to(cuda),
+                                  stg_key.to(cuda)))
+        torch.cuda.synchronize()
+        hop_launch = read_counts()
+        nb_c = sample_staged_hop(chk_stores[1].hot_graph, torch.from_numpy(loc_c), st_c, kk, (hot_key, stg_key))
+        bad = ((nb_g.ids.cpu() != nb_c.ids) | (nb_g.mask.cpu() != nb_c.mask)).any(1).nonzero().flatten().tolist()
+        hot_ip = chk_stores[1].hot_graph.indptr.numpy().astype(np.int64)
+        hot_pr = chk_stores[1].hot_graph.probs.numpy()
+        st_ip = st_c.graph.indptr.numpy().astype(np.int64)
+        st_pr = st_c.graph.probs.numpy()
+        staged_pos = {int(p): j for j, p in enumerate(st_c.row_of.tolist())}
+        for r in bad:
+            if loc_c[r] != INVALID_ID:  # a hot row: K8
+                ok = hot_alias and k8_tie(hot_ip, hot_pr, loc_c, hot_key[1], kk)(r)
+            else:  # a staged row: K7 over the compact sub-CSC
+                j = staged_pos.get(r)
+                ok = j is not None and k7_tie(st_ip, st_pr, np.arange(st_c.count), stg_key, kk)(j)
+            check(ok, f"host_tier_biased hop {i}: row {r} differs between the card and the CPU")
+        check(hop_launch["sample_biased"] == (st_g.count > 0 and st_g.graph.num_edges > 0)
+              and hop_launch["sample_biased_alias"] == int(hot_alias),
+              f"host_tier_biased hop {i}: launches {hop_launch}")
+        w_hop_rows.append({"hop": i, "seeds": L, "hot_rows": int((loc_c != INVALID_ID).sum()),
+                           "staged_rows": st_c.count, "hub_rows": int(st_c.is_pre.sum()),
+                           "staged_edges": st_c.graph.num_edges, "presample_ms": st_c.presample_s * 1e3,
+                           "near_tie_rows": len(bad), "k7": hop_launch["sample_biased"],
+                           "k8": hop_launch["sample_biased_alias"]})
+        rl = unique_and_relabel(torch.from_numpy(seeds_h), nb_c.ids, nb_c.mask)
+        seeds_h, mask_h = rl.frontier.numpy(), rl.frontier_mask.numpy()
+    del chk_stores
+    plan_alias = wgstore.hot_graph.alias_prob is not None
+    whf = HostTierTrainer(model=fresh_sage(15), fan_out=FAN_OUT, store=wfstore, gstore=wgstore,
+                          dedup_last=False, device=cuda)
+    wfull_res, wlaunch_full = host_tier_run("host_tier_biased", whf, None, {})
+    k7_per = wlaunch_full["sample_biased"] / N_TIMED
+    k8_per = wlaunch_full["sample_biased_alias"] / N_TIMED
+    check(k7_per > 0 and wlaunch_full["sample_uniform"] == 0 and (k8_per > 0) == plan_alias,
+          f"host_tier_biased launches {wlaunch_full}")
+    k7["launches"] = wlaunch_full["sample_biased"]
+    emit({"phase": "host_tier_biased", "mode": w_mode, "capacity_bytes": w_capacity, "plan_ms": w_plan_ms,
+          "hot_structure_nodes": len(ws_hot), "hot_feature_nodes": len(wf_hot), "hot_alias_tables": plan_alias,
+          "check_hot_structure_nodes": len(top_deg),
+          "miss_budget": front_cap, "deg_cap": 128, "hops_checked": w_hop_rows, **wfull_res,
+          "k7_per_batch": k7_per, "k8_per_batch": k8_per, **card})
+
     # ---- 15. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k)]})
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
+    # the profiler's record check saw launches (else it could not work)
+    check(profile_device.launches_seen > 0, "the profiler recorded no kernel launch calls")
+    emit({"phase": "profiler", "sessions": profile_device.sessions,
+          "sessions_incomplete": profile_device.sessions_incomplete,
+          "min_kept_share": profile_device.min_kept_share, "launches_seen": profile_device.launches_seen,
+          **card})
+    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k, k7, k8)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,13 +12,16 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card they raise, they never fall back
 (:func:`dist_gnn_tpu_torch.utils.device.resolve_device`).
 
-Ported so far: the sampler, K1 feature gather, K2 (the same gather by
+Ported so far: the sampler (uniform K6, weighted K7 and K8 with the
+native alias tables), the frontier-cap tuner, phase timing and metrics,
+checkpoints, K1 feature gather, K2 (the same gather by
 double-buffered row copies, run by the gather bench
 ``scripts/bench_gather2.py``), SAGE with the K3 neighbour mean (forward
 and backward kernels), GAT with the fused attention kernels K4 (forward)
 and K5 (backward), GCN, ``Trainer.train_step`` (Adam with coupled L2,
-dropout), ``Trainer.eval_step``, and full-graph inference of all three
-families, on the device and host-resident.
+dropout), ``Trainer.eval_step``, full-graph inference of all three
+families, on the device and host-resident, and the host-resident tiers
+(``host_tier.py``, ``training/pipeline.HostTierTrainer``).
 """
 
 from dist_gnn_tpu_torch.graph import INVALID_ID, Graph, HostGraph  # noqa: F401

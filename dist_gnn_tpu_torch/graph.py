@@ -1,10 +1,12 @@
 """Graph containers (CSC layout, in-neighbours).
 
 Counterpart of ``dist_gnn_tpu/graph.py``.  :class:`HostGraph` is the numpy
-host copy; :class:`Graph` holds ``indptr``/``indices`` as torch tensors on
-one device.  The JAX package's alias tables, pair layouts and windows serve
+host copy; :class:`Graph` holds ``indptr``/``indices`` (and, for a weighted
+graph, ``probs`` and optionally the Walker alias tables ``alias_prob``/
+``alias_idx``) as torch tensors on one device.  The JAX package's padded
+edge arrays, ``alias_pack``, ``indptr_pairs`` and window pair layouts serve
 TPU gathers and are not carried over: the port samples with the exact
-elementwise fetch, which needs only ``indptr`` and ``indices``.
+elementwise fetch.
 """
 
 from __future__ import annotations
@@ -67,44 +69,53 @@ class HostGraph:
         probs: Optional[np.ndarray] = None,
         symmetrize: bool = False,
     ) -> "HostGraph":
-        """CSC (in-neighbour) graph from a directed edge list.
+        """CSC (in-neighbour) graph from a directed edge list, by the
+        native stable counting sort (``utils/native.build_csc``): within a
+        row, edges keep their edge-list order, and ``indptr`` is int32
+        below 2**31 edges, as the JAX package's native build gives."""
+        from dist_gnn_tpu_torch.utils import native
 
-        A stable counting sort by destination: within a row, edges keep
-        their edge-list order.  That is what the JAX package's native
-        C++ build and its numpy fallback both give, dtypes included (int32
-        ``indptr`` below 2**31 edges)."""
         if symmetrize:
             src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
             if probs is not None:
                 probs = np.concatenate([probs, probs])
-        src = np.asarray(src)
-        dst = np.asarray(dst)
-        if dst.size and (dst.min() < 0 or dst.max() >= num_nodes):
-            raise ValueError(f"from_coo: dst ids outside [0, {num_nodes})")
-        counts = np.bincount(dst, minlength=num_nodes)
-        indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-        np.cumsum(counts, out=indptr[1:])
-        order = np.argsort(dst, kind="stable")
-        indices = src[order].astype(np.int32)
-        out_probs = probs[order].astype(np.float32) if probs is not None else None
-        indptr = indptr.astype(_min_indptr_dtype(len(indices)))
+        indptr, indices, out_probs = native.build_csc(dst, src, num_nodes, probs)
         return HostGraph(indptr=indptr, indices=indices, probs=out_probs)
 
-    def to_device(self, device: DeviceLike = None) -> "Graph":
+    def build_alias_tables(self):
+        """Walker alias tables of the weighted graph, ``(prob [E] f32,
+        alias [E] int32 row offsets)``, by the native build
+        (``utils/native.build_alias``); the alias sampler
+        (``ops/sampling.sample_biased_alias``) draws from them."""
+        if self.probs is None:
+            raise ValueError("alias tables need a weighted graph (probs)")
+        from dist_gnn_tpu_torch.utils import native
+
+        return native.build_alias(self.indptr, self.probs)
+
+    def to_device(self, device: DeviceLike = None, with_alias: bool = False) -> "Graph":
         """Upload ``indptr``/``indices`` (and ``probs``) to ``device``
-        (default: the card)."""
+        (default: the card); ``with_alias`` also builds and uploads the
+        alias tables of a weighted graph, which makes its sampler the alias
+        sampler (``ops/sampling.sample_neighbors``)."""
         dev = resolve_device(device)
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        alias_prob = alias_idx = None
+        if with_alias and self.probs is not None:
+            ap, ai = self.build_alias_tables()
+            alias_prob, alias_idx = put(ap, np.float32), put(ai, np.int32)
         return Graph(
             indptr=torch.from_numpy(np.ascontiguousarray(self.indptr)).to(dev),
-            indices=torch.from_numpy(
-                np.ascontiguousarray(self.indices, dtype=np.int32)
-            ).to(dev),
-            probs=None
-            if self.probs is None
-            else torch.from_numpy(np.ascontiguousarray(self.probs, np.float32)).to(dev),
+            indices=put(self.indices, np.int32),
+            probs=None if self.probs is None else put(self.probs, np.float32),
             num_nodes=self.num_nodes,
             num_edges=self.num_edges,
             max_degree=self.max_degree,
+            alias_prob=alias_prob,
+            alias_idx=alias_idx,
         )
 
 
@@ -118,4 +129,6 @@ class Graph:
     num_nodes: int
     num_edges: int
     max_degree: int
+    alias_prob: Optional[torch.Tensor] = None  # [nnz] f32 acceptance thresholds
+    alias_idx: Optional[torch.Tensor] = None  # [nnz] int32 alias offsets within the row
 

@@ -6,11 +6,17 @@ next layer's seeds.  Every block is padded and masked to a fixed shape, and
 the frontier keeps the positional seeds-first invariant, so the model
 chains layers by slicing.
 
+Each hop samples through ``ops/sampling.sample_neighbors``: K6 on an
+unweighted graph, K8 on a weighted one with alias tables, K7 on a weighted
+one without them (the graph decides, as in the JAX package).
+
 The JAX package splits one key per hop (``jax.random.split(key,
 len(fan_out))``).  Here ``key`` is a ``torch.Generator`` that draws every
-hop's keys in turn, or a sequence of per-hop key tensors
-(``row_key[B_i]`` for replace=False, ``bits[B_i, k_i]`` for replace=True),
-which is how tests inject the JAX package's keys.
+hop's keys in turn, or a sequence of per-hop keys, each what the hop's
+sampler takes (uniform and K7: ``row_key[B_i]`` for replace=False,
+``bits[B_i, k_i]`` for replace=True; K8: see
+``ops/sampling.alias_keys``), which is how tests inject the JAX package's
+keys.
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ def sample_blocks(
     seed_mask: torch.Tensor,
     fan_out: Tuple[int, ...],
     replace: bool,
-    key: Union[torch.Generator, Sequence[torch.Tensor]],
+    key: Union[torch.Generator, Sequence],
     frontier_caps: Optional[Tuple[int, ...]] = None,
     dedup_last: bool = True,
 ):
@@ -118,7 +124,8 @@ def sample_blocks(
     mini-batch); reverse them for input-first model consumption.
 
     ``stats`` holds 0-d tensors: ``sampler_overflow`` (sampled slots masked
-    by a static budget; 0 on the port's exact paths) and
+    because a draw budget fell short: the alias sampler's shortfall, summed
+    over the hops on the device; 0 on the exact paths) and
     ``frontier_overflow`` (frontier entries dropped by ``frontier_caps``).
 
     ``frontier_caps`` (optional, one per hop in sampling order) bounds each

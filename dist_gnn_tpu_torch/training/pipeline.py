@@ -14,7 +14,8 @@ metrics carry its host probe and gather ms and its copy ms on the card,
 the numbers that decide whether staging should move to a worker thread.
 
 Two structure modes: the graph whole on the device (``gstore=None``;
-``sample_blocks``, K6 per hop), or host-resident structure
+``sample_blocks``: K6, K7 or K8 per hop, as the graph decides), or
+host-resident structure
 (:class:`~dist_gnn_tpu_torch.host_tier.HostCSCStore`): per-hop staging,
 with a host round trip between hops, since the next hop's seeds decide
 what to stage.
@@ -108,7 +109,7 @@ class HostTierTrainer:
         (hot keys, staged keys) pair per hop.  Returns (blocks, host stats,
         the last frontier and its mask as numpy)."""
         blocks = []
-        stats = {"struct_miss": 0, "struct_overflow": 0, "struct_plan_ms": 0.0}
+        stats = {"struct_miss": 0, "struct_overflow": 0, "struct_plan_ms": 0.0, "struct_presample_ms": 0.0}
         seeds_h, mask_h = np.asarray(seeds_np), np.asarray(mask_np)
         dev = self.device
         n_hops = len(self.fan_out)
@@ -116,6 +117,7 @@ class HostTierTrainer:
             t0 = time.perf_counter()
             local_rows, staged = self.gstore.plan_hop(seeds_h, mask_h, k, rng)
             stats["struct_plan_ms"] += (time.perf_counter() - t0) * 1e3
+            stats["struct_presample_ms"] += staged.presample_s * 1e3
             stats["struct_miss"] += staged.count
             stats["struct_overflow"] += staged.overflow
             last = i == n_hops - 1
@@ -188,7 +190,8 @@ class HostTierTrainer:
         on the CPU), plus the sampler's
         ``sampler_overflow``/``frontier_overflow`` or, with host
         structure, ``struct_miss``/``struct_overflow`` and
-        ``struct_plan_ms`` (host time of the hops' planning).  A batch's
+        ``struct_plan_ms`` (host time of the hops' planning) with
+        ``struct_presample_ms`` (the part spent presampling hub rows).  A batch's
         staged rows are released once its compute is queued; only its copy
         events are kept until the end, for ``stage_h2d_ms``."""
         rng = np.random.default_rng(seed)

@@ -188,11 +188,120 @@ def test_plan_hop_ships_a_compact_sub_csc():
 
 
 def test_weighted_structure_raises():
+    """A weighted ``HostCSCStore`` builds (its hot sub-CSC carries the
+    weights and their alias tables); weights that are not parallel to the
+    edges raise."""
     rng = np.random.default_rng(2)
     hg = HostGraph.from_coo(rng.integers(0, 50, 200), rng.integers(0, 50, 200), 50,
                             probs=rng.random(200).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        tht.HostCSCStore(hg, np.arange(10), miss_budget=16, device="cpu")
+    store = tht.HostCSCStore(hg, np.arange(10), miss_budget=16, device="cpu")
+    hot = store.hot_graph
+    assert hot.probs is not None and hot.alias_prob is not None and hot.alias_idx is not None
+    sp, _, spr = native.extract_subcsc(np.arange(10), hg.indptr, hg.indices, hg.probs)
+    np.testing.assert_array_equal(hot.probs.numpy(), spr)
+    np.testing.assert_array_equal(hot.alias_prob.numpy(), native.build_alias(sp, spr)[0])
+    with pytest.raises(ValueError):
+        HostGraph(indptr=hg.indptr, indices=hg.indices, probs=hg.probs[:-1])
+
+
+def _weighted_hub_graph(seed, n=400, e=5000):
+    """``_hub_graph`` with |N(0, 1)| weights, a fifth of them 0."""
+    rng = np.random.default_rng(seed)
+    dst = (rng.pareto(1.2, e) * 5).astype(np.int64) % n
+    w = np.abs(rng.standard_normal(e)).astype(np.float32)
+    w[rng.random(e) < 0.2] = 0
+    thg = HostGraph.from_coo(rng.integers(0, n, e), dst, n, probs=w)
+    return thg, jgraph.HostGraph(indptr=thg.indptr, indices=thg.indices, probs=thg.probs), rng
+
+
+@pytest.mark.parametrize(
+    "L,k,n_hot,miss_budget,deg_cap",
+    [(64, 5, 150, 64, 8), (200, 10, 40, 200, 16), (300, 15, 100, 50, 32), (50, 4, 0, 50, 6)],
+    ids=["hubs", "wide", "overflow", "no_hot_tier"],
+)
+def test_weighted_sample_staged_hop_is_bit_identical_to_jax(L, k, n_hot, miss_budget, deg_cap):
+    """Hot rows through the alias sampler (K8's plain version; JAX's
+    ``sample_biased_alias``), staged rows through the Gumbel top-k of the
+    whole row (K7's; JAX's staged window), hub rows presampled on the host
+    with JAX's explicit Gumbel keys from the same numpy seed: ids and mask
+    equal JAX's on its keys.  (JAX needs deg_cap >= k for its top-k.)"""
+    thg, jhg, rng = _weighted_hub_graph(L + k)
+    hot = rng.choice(thg.num_nodes, n_hot, replace=False).astype(np.int32)
+    seeds, mask = _frontier(rng, thg.num_nodes, L)
+    jg = jht.HostCSCStore(jhg, hot, miss_budget=miss_budget, deg_cap=deg_cap)
+    tg = tht.HostCSCStore(thg, hot, miss_budget=miss_budget, deg_cap=deg_cap, device="cpu")
+    j_local, jst = jg.plan_hop(seeds, mask, k, np.random.default_rng(9))
+    t_local, tst = tg.plan_hop(seeds, mask, k, np.random.default_rng(9))
+    np.testing.assert_array_equal(t_local, np.asarray(j_local))
+    assert (tst.count, tst.overflow) == (jst.count, jst.overflow)
+    np.testing.assert_array_equal(tst.pre_ids.numpy(), np.asarray(jst.pre_ids)[: tst.count])
+    key = jax.random.key(L * k)
+    want = jax.jit(jht.sample_staged_hop, static_argnames=("k",))(
+        jg.hot_graph, jnp.asarray(j_local), jst, k=k, key=key
+    )
+    if n_hot:  # the hot sub-CSC has alias tables: the alias sampler's keys
+        hot_keys = (_t(jprng.random_keys(key, (2, L, 4 * k))),
+                    _t(jprng.random_keys(jax.random.fold_in(key, 1), (L, 2 * k))))
+    else:  # an empty hot tier: JAX's dispatch takes sample_biased
+        hot_keys = _t(jprng.random_keys(key, (L,)))
+    staged_keys = _t(jprng.random_keys(jax.random.fold_in(key, 1), (miss_budget,)))[: tst.count]
+    got = tht.sample_staged_hop(tg.hot_graph, torch.from_numpy(t_local), tst, k, (hot_keys, staged_keys))
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    assert got.mask.any() and (got.ids.numpy()[~got.mask.numpy()] == INVALID_ID).all()
+    assert tst.graph.probs is not None and bool(tst.is_pre.any())
+    assert sampling.sample_biased.launches == sampling.sample_biased_alias.launches == 0
+
+
+def test_biased_staged_hop_matches_ares_oracle():
+    """The port's analogue of ``tests/test_host_tier.py:125``: a weighted
+    row of 6 edges sampled staged (K7's rule), hot (the alias sampler) and,
+    as a hub row above deg_cap, presampled on the host; each tier includes
+    the edges as A-Res does (0.04, JAX's limit), and the hub's heavier
+    edges out-appear its lighter ones."""
+    rng = np.random.default_rng(5)
+    N = 200
+    w_hub = np.array([1.0, 1.0, 2.0, 2.0, 4.0, 4.0], np.float32)
+    src, dst, w = [j + 1 for j in range(6)], [0] * 6, list(w_hub)
+    for j in range(40):  # a weighted row of 40 at node 1 (> deg_cap)
+        src.append(10 + j), dst.append(1), w.append(1.0 + (j % 4))
+    for v in range(2, N):
+        src.append((v + 1) % N), dst.append(v), w.append(1.0)
+    hg = HostGraph.from_coo(np.asarray(src), np.asarray(dst), N, probs=np.asarray(w, np.float32))
+    k = 3
+    orng = np.random.default_rng(99)
+    oracle = np.zeros(6)
+    for _ in range(60_000):
+        oracle[np.argsort(-(np.log(orng.random(6)) / w_hub))[:k]] += 1
+    oracle /= 60_000
+    gen = torch.Generator().manual_seed(0)
+
+    def inclusion(store, trials=6, L=128):
+        counts = np.zeros(7)
+        for _ in range(trials):
+            local_rows, staged = store.plan_hop(np.zeros(L, np.int32), np.ones(L, bool), k, rng)
+            assert staged.overflow == 0
+            nb = tht.sample_staged_hop(store.hot_graph, torch.from_numpy(local_rows), staged, k, gen)
+            ids, msk = nb.ids.numpy(), nb.mask.numpy()
+            assert msk.all()
+            counts += np.bincount(ids[msk], minlength=7)
+        return counts[1:] / (trials * L)
+
+    cold = tht.HostCSCStore(hg, np.arange(50, 80, dtype=np.int32), miss_budget=256, deg_cap=16, device="cpu")
+    np.testing.assert_allclose(inclusion(cold), oracle, atol=0.04)
+    hot = tht.HostCSCStore(hg, np.asarray([0], np.int32), miss_budget=256, deg_cap=16, device="cpu")
+    np.testing.assert_allclose(inclusion(hot), oracle, atol=0.04)
+    pre_counts = np.zeros(N)
+    for _ in range(40):
+        local_rows, staged = cold.plan_hop(np.ones(16, np.int32), np.ones(16, bool), k, rng)
+        assert staged.is_pre.all()
+        nb = tht.sample_staged_hop(cold.hot_graph, torch.from_numpy(local_rows), staged, k, gen)
+        ids, msk = nb.ids.numpy(), nb.mask.numpy()
+        assert msk.all() and set(ids[msk].tolist()) <= set(range(10, 50))
+        pre_counts += np.bincount(ids[msk], minlength=N)
+    heavy = sum(pre_counts[10 + j] for j in range(40) if j % 4 == 3)
+    light = sum(pre_counts[10 + j] for j in range(40) if j % 4 == 0)
+    assert heavy > 1.5 * light, (heavy, light)
 
 
 # ---- training/pipeline ---------------------------------------------------
@@ -288,6 +397,41 @@ def test_pipelined_run_equals_sequential_run(host_struct, kind):
         if pipelined:
             metrics = tr.train_batches(graph, labels, batches, 11)
             assert len(metrics) == 6 and all(m["feat_miss"] > 0 for m in metrics)
+            if host_struct:
+                assert any(m["struct_miss"] > 0 for m in metrics)
+        else:
+            rng = np.random.default_rng(11)
+            for i, (s, mk) in enumerate(batches):
+                sk, dk = batch_keys(11, i, tr.device)
+                blocks, _, f, fm = tr.sample(graph, s, mk, sk, rng)
+                tr.compute_step(blocks, fstore.stage(f, fm), tr.batch_labels(labels, s, mk),
+                                torch.from_numpy(mk), dk)
+        params.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+    assert all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+
+
+@pytest.mark.parametrize("host_struct", [False, True])
+def test_weighted_pipelined_run_equals_sequential_run(host_struct):
+    """``HostTierTrainer`` on a weighted graph: with the structure on the
+    device (alias tables: K8 per hop) or host-resident (K8 hot, K7 staged,
+    Gumbel-presampled hubs), the pipelined run equals a sequential one, and
+    the model learns nothing non-finite."""
+    arrays, meta = jpre.make_synthetic_dataset(
+        num_nodes=800, avg_degree=6, feature_dim=12, num_classes=4, train_frac=0.5, with_probs=True, seed=5,
+    )
+    hg = HostGraph(indptr=arrays["indptr"], indices=arrays["indices"], probs=arrays["probs"])
+    labels = np.asarray(arrays["labels"], np.int32)
+    batches = _batches(arrays, 5, 32, 0)
+    params = []
+    for pipelined in (True, False):
+        fstore = tht.HostFeatureStore(arrays["features"], np.arange(50), 2048, device="cpu")
+        gstore = tht.HostCSCStore(hg, np.arange(0, 800, 3), 2048, deg_cap=8, device="cpu") if host_struct else None
+        model = TSAGE(12, 8, 4, 2, generator=torch.Generator().manual_seed(0), device="cpu")
+        tr = HostTierTrainer(model=model, fan_out=(3, 3), store=fstore, gstore=gstore, device="cpu")
+        graph = None if host_struct else hg.to_device("cpu", with_alias=True)
+        if pipelined:
+            metrics = tr.train_batches(graph, labels, batches, 11)
+            assert all(np.isfinite(float(m["loss"])) for m in metrics)
             if host_struct:
                 assert any(m["struct_miss"] > 0 for m in metrics)
         else:

@@ -33,6 +33,7 @@ def test_walk_covers_the_package():
                    "models/inference.py", "training/trainer.py", "scripts/bench_gather2.py",
                    "utils/native.py", "utils/staging.py", "ops/hashtable.py", "feature_server.py",
                    "ops/heat.py", "cache/cost_model.py", "cache/policy.py", "cache/builder.py",
-                   "host_tier.py", "training/pipeline.py"):
+                   "host_tier.py", "training/pipeline.py", "cache/autotune.py", "utils/metrics.py",
+                   "training/checkpoint.py", "ops/sampling.py", "graph.py"):
         assert f"dist_gnn_tpu_torch/{module}" in names
     assert len(names) >= 20

@@ -141,11 +141,19 @@ def test_sample_neighbors_draws_from_generator_and_rejects_probs():
     a = tsampling.sample_neighbors(tg, seeds, 4, False, torch.Generator().manual_seed(3))
     b = tsampling.sample_neighbors(tg, seeds, 4, False, torch.Generator().manual_seed(3))
     assert torch.equal(a.ids, b.ids) and torch.equal(a.mask, b.mask)
+    # a weighted graph samples too (K7's plain version here), from the
+    # generator or from keys of its shape; weights that are not parallel to
+    # the edges, and keys of another shape, are rejected
     weighted = tgraph.HostGraph(
         thg.indptr, thg.indices, probs=np.ones(thg.num_edges, np.float32)
     ).to_device("cpu")
-    with pytest.raises(NotImplementedError):
-        tsampling.sample_neighbors(weighted, seeds, 4, False, torch.Generator())
+    c = tsampling.sample_neighbors(weighted, seeds, 4, False, torch.Generator().manual_seed(3))
+    d = tsampling.sample_biased_plain(weighted, seeds, 4, False, torch.Generator().manual_seed(3))
+    assert torch.equal(c.ids, d.ids) and torch.equal(c.mask, d.mask)
+    with pytest.raises(ValueError):
+        tsampling.sample_neighbors(weighted, seeds, 4, False, torch.zeros(31, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        tgraph.HostGraph(thg.indptr, thg.indices, probs=np.ones(thg.num_edges - 1, np.float32))
 
 
 # ---- (c) unique_and_relabel ------------------------------------------------
