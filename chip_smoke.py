@@ -127,11 +127,39 @@ weights from a seed.  Phases, one JSON line each:
     rule, 12 timed batches after 2 warm-up with the hub presampling's host
     ms).
 
+16. the distributed package (``dist_gnn_tpu_torch/parallel``) at a world
+    of one on NCCL, a gloo group of the same world carrying each check's
+    CPU reference: dist_exchange (``exchange_gather`` equals a K1 gather
+    and runs no collective; ``sample_neighbors_sharded`` rides NCCL's
+    all_to_all to itself and equals ``sample_neighbors`` on its request
+    table at the three hops of a request, bit for bit; the int8 store with
+    the plan's hot and peer-hot tiers and ``sample_neighbors_cached`` with
+    the plan's hot structure equal the CPU's; event ms of each);
+    dist_training_sage (one f32 dropout-0 ``DistTrainer.train_step``
+    against ``Trainer.train_step``: loss 1e-5, gradients 1e-3; then 8
+    steps at the SAGE bench config under the tuned caps, in turns with 8
+    ``Trainer`` steps, with launches, collectives and host syncs per step,
+    busy share and top kernels; 2 epochs and the sampled validation
+    accuracy through ``DistTrainer.eval_step``, >= 0.99);
+    dist_training_sage_sharded (owner-side sampling on the
+    ``ShardedGraph`` with the plan's hot structure, the plan's hot features
+    and the peer-hot table, bf16 and int8 stores: ms per step, exchange
+    rounds, every overflow 0); dist_launches (a GAT step, K4/K5, and a
+    weighted sharded SAGE step, K8); dist_inference
+    (``dist_full_graph_inference`` of SAGE, GCN and GAT against
+    ``full_graph_inference`` within 5e-2, edges/s); dist_world2_gloo (two
+    spawned ranks on the one card over gloo, which carries their CUDA
+    tensors for all_to_all, all_reduce and all_gather but not send/recv
+    (``scripts/probe_gloo_cuda.py``): ``world2_gloo``'s skewed lossless
+    exchange, peer-hot rows from the other rank, the gradient protocol
+    and 4 ``DistTrainer`` steps on the ``ShardedGraph``).
+
 Then the profiler's count of sessions that lost kernel records
 (``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
 K1, K2, K3, K3-bwd, K4, K5, the slot transpose, K7, K8, each with its
-device ms), the card's name and power limit as nvidia-smi gives them,
-and last ``{"ok": true, "device": {...}}``.  Any failed check raises, and
+device ms and its launches per distributed step), the card's name and
+power limit as nvidia-smi gives them, and last ``{"ok": true, "device":
+{...}}``.  Any failed check raises, and
 the script exits non-zero without the last line.  It needs no network
 and imports nothing of JAX.
 """
@@ -143,6 +171,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -306,6 +335,148 @@ def gat_edge_checks(gat_ops, gen) -> list:
     return rows
 
 
+def world2_gloo(mesh, caps, num_nodes) -> dict:
+    """One rank of the world-2 phase (``launch`` spawns two on the card, over
+    gloo): each builds the bench graph (``num_nodes`` 500,000) from its
+    seed and checks (a) an
+    exchange whose every id lies in shard 0, over a budget of 256 for
+    4,096 ids a rank: lossless, exact, in 16 rounds; (b) peer-hot rows
+    served from the other rank's hot tier while the base shards lie about
+    them (and the base's lie without the peer tier); (c) the gradient
+    protocol of ``tests/test_parallel.py:149-256``: on fixed blocks, the
+    summed gradient of the globally normalised loss (features through the
+    exchange) against the single-device gradient of the concatenated
+    batch, f32, dropout 0 (loss 1e-5, gradients 1e-3); (d) 4
+    ``DistTrainer`` steps on the ``ShardedGraph`` at the SAGE bench config,
+    512 seeds a rank, 3 timed.  Returns its measures."""
+    import numpy as np
+    import torch
+
+    from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
+    from dist_gnn_tpu_torch.dataloading.seeds import SeedGenerator
+    from dist_gnn_tpu_torch.graph import HostGraph
+    from dist_gnn_tpu_torch.models.sage import SAGE
+    from dist_gnn_tpu_torch.parallel import feature_store as dfs
+    from dist_gnn_tpu_torch.parallel.graph_dist import ShardedGraph
+    from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
+    from dist_gnn_tpu_torch.sampler import sample_blocks
+    from dist_gnn_tpu_torch.training import dist_masked_nll_loss
+
+    cuda, n, me = mesh.device, mesh.size, mesh.rank
+    sync = torch.cuda.synchronize if cuda.type == "cuda" else (lambda: None)
+    out = {"rank": me, "backend": mesh.backend, "device": str(cuda)}
+    arrays, meta = make_synthetic_dataset(
+        num_nodes=num_nodes, avg_degree=30, feature_dim=100, num_classes=47, train_frac=0.2, seed=0,
+    )
+    hg = HostGraph(indptr=arrays["indptr"], indices=arrays["indices"])
+    feats = arrays["features"]
+    N = hg.num_nodes
+    # (a) adversarial skew: every id in shard 0, a budget far below the load
+    store = dfs.ShardedFeatureStore(feats, mesh)
+    L, budget = 4096, 256
+    ids = torch.from_numpy(np.random.default_rng(10 + me).integers(0, store.shard_size, L).astype(np.int32)).to(cuda)
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    rows, uns = dfs.exchange_gather(store.features, ids, torch.ones(L, dtype=torch.bool, device=cuda), mesh,
+                                    store.shard_size, budget=budget)
+    sync()
+    skew_ms = (time.perf_counter() - t0) * 1e3
+    rounds = mesh.counts["host_syncs"]
+    check(torch.equal(rows.cpu(), torch.from_numpy(feats[ids.cpu().long()])) and int(uns) == 0,
+          f"world 2 rank {me}: the skewed exchange lost or changed rows")
+    check(rounds == -(-L // budget), f"world 2 rank {me}: {rounds} rounds, expected {-(-L // budget)}")
+    out["skew"] = {"ids": L, "budget": budget, "rounds": rounds, "all_to_all": mesh.counts["all_to_all"],
+                   "ms": skew_ms}
+    # (b) peer-hot: disjoint hot sets, the base shards lie about hot rows
+    C = min(20_000, N // 4)
+    hot = np.random.default_rng(20).permutation(N)[: 2 * C].reshape(2, C).astype(np.int32)
+    lie = feats.copy()
+    lie[hot.reshape(-1)] = -777.0
+    q_np = np.concatenate([hot[1 - me][:L], np.random.default_rng(30 + me).integers(0, N, 1024)]).astype(np.int32)
+    q = torch.from_numpy(q_np).to(cuda)
+    peer_rows = {}
+    for peer in (True, False):
+        st = dfs.ShardedFeatureStore(feats, mesh, hot_ids=hot, peer_hot=peer)
+        st.features = st.shard_of(lie)
+        r_, u_ = st.fetch_local(q, torch.ones(len(q_np), dtype=torch.bool, device=cuda), budget=len(q_np))
+        check(int(u_) == 0, f"world 2 rank {me}: peer-hot fetch unserved {int(u_)}")
+        peer_rows[peer] = r_.cpu().numpy()
+    other_hot = np.isin(q_np, hot[1 - me])
+    mine_hot = np.isin(q_np, hot[me])
+    check(np.array_equal(peer_rows[True], feats[q_np]), f"world 2 rank {me}: peer-hot rows are not the true rows")
+    check(bool((peer_rows[False][other_hot & ~mine_hot] == -777.0).all()),
+          f"world 2 rank {me}: without the peer tier the other rank's hot rows should come from the base")
+    out["peer_hot"] = {"ids": len(q_np), "hot_on_the_other_rank": int((other_hot & ~mine_hot).sum()),
+                       "true_rows_with_peer_tier": True}
+    # (c) the gradient protocol on fixed blocks
+    graph = hg.to_device(cuda)
+    seeds = np.random.default_rng(40).choice(arrays["train_idx"], n * BATCH, replace=False).astype(np.int32)
+    blocks = [sample_blocks(graph, torch.from_numpy(seeds[c * BATCH:(c + 1) * BATCH]).to(cuda),
+                            torch.ones(BATCH, dtype=torch.bool, device=cuda), FAN_OUT, False,
+                            torch.Generator(device=cuda).manual_seed(100 + c), dedup_last=False)[0]
+              for c in range(n)]
+    labels = torch.from_numpy(arrays["labels"]).to(cuda)
+    model = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), dropout=0.0,
+                 generator=torch.Generator().manual_seed(41), device=cuda)
+    ref = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), dropout=0.0,
+               generator=torch.Generator().manual_seed(41), device=cuda)
+    mine = blocks[me]
+    fr = mine[-1].frontier
+    rows, _ = store.fetch_local(fr, mine[-1].frontier_mask, budget=fr.shape[0])
+    lab = labels[torch.from_numpy(seeds[me * BATCH:(me + 1) * BATCH]).to(cuda).long()]
+    loss, _ = dist_masked_nll_loss(model, False, mesh, mine, rows, lab, mine[0].seed_mask, None)
+    loss.backward()
+    grads = mesh.all_reduce(torch.cat([p.grad.reshape(-1) for p in model.parameters()]))
+    loss_dist = float(mesh.all_reduce(loss.detach().reshape(1))[0])
+    feats_dev = torch.from_numpy(feats).to(cuda)
+    total = 0.0
+    for c, blk in enumerate(blocks):
+        safe = torch.where(blk[-1].frontier_mask, blk[-1].frontier, 0).long()
+        logits = ref(tuple(reversed(blk)), feats_dev[safe], contiguous_first=True)
+        lab_c = labels[torch.from_numpy(seeds[c * BATCH:(c + 1) * BATCH]).to(cuda).long()]
+        total = total - torch.log_softmax(logits.float(), -1).gather(1, lab_c[:, None].long()).sum()
+    total = total / (n * BATCH)
+    total.backward()
+    total = float(total.detach())
+    ref_grads = torch.cat([p.grad.reshape(-1) for p in ref.parameters()])
+    loss_err = abs(loss_dist - total) / max(1.0, abs(total))
+    off, grad_err = 0, {}
+    for name, p in ref.named_parameters():
+        grad_err[name] = share_err(grads[off:off + p.numel()], ref_grads[off:off + p.numel()])
+        off += p.numel()
+    check(loss_err <= LOSS_F32_TOL, f"world 2 rank {me}: dist loss {loss_dist} vs single-device {total}")
+    check(all(e <= GRAD_F32_TOL for e in grad_err.values()), f"world 2 rank {me}: gradients {grad_err}")
+    out["grad"] = {"loss_dist": loss_dist, "loss_single_device": total, "loss_err": loss_err,
+                   "grad_share_err": grad_err}
+    del graph, feats_dev, blocks, model, ref
+    # (d) DistTrainer on the ShardedGraph, 512 seeds a rank
+    sg = ShardedGraph.build(hg, mesh)
+    store_bf = dfs.ShardedFeatureStore(torch.from_numpy(feats).to(torch.bfloat16), mesh)
+    tr = DistTrainer(model=SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(60), device=cuda),
+                     fan_out=FAN_OUT, store=store_bf, sgraph=sg, dedup_last=False, frontier_caps=caps)
+    labs = store_bf.shard_of(labels[:, None])
+    batches = list(SeedGenerator(arrays["train_idx"], n * BATCH, shuffle=True, drop_last=True, device=cuda)
+                   .epoch(torch.Generator(device=cuda).manual_seed(80)))[:4]
+    gen = torch.Generator(device=cuda).manual_seed(70 + me)
+    tr.train_step(None, labs, *batches[0], gen)  # warm-up
+    sync()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    mets = [tr.train_step(None, labs, s, mk, gen) for s, mk in batches[1:]]
+    sync()
+    step_ms = (time.perf_counter() - t0) / len(mets) * 1e3
+    ovf = sum(int(m_["overflow"]) + int(m_["sampler_overflow"]) + int(m_["frontier_overflow"]) for m_ in mets)
+    check(ovf == 0 and all(np.isfinite(float(m_["loss"])) for m_ in mets), f"world 2 rank {me}: overflow {ovf}")
+    out["train"] = {"steps": len(mets), "ms_per_step": step_ms, "losses": [float(m_["loss"]) for m_ in mets],
+                    "collectives_per_step": {k: v / len(mets) for k, v in mesh.counts.items()},
+                    "exchange_rounds_per_step": mesh.counts["host_syncs"] / len(mets)}
+    psum = torch.stack([p.detach().double().sum() for p in tr.model.parameters()]).sum().reshape(1)
+    sums = [float(x) for x in mesh.all_gather(psum)]
+    check(sums[0] == sums[1], f"world 2 rank {me}: the ranks' params differ after training ({sums})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -314,6 +485,7 @@ def main() -> int:
         return 1
 
     import numpy as np
+    import torch.distributed as dist
     import torch.nn.functional as F
 
     t_script = time.perf_counter()
@@ -334,7 +506,13 @@ def main() -> int:
     from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, prng, sampling, spmm
     from dist_gnn_tpu_torch.ops.hashtable import np_in_sorted
+    from dist_gnn_tpu_torch.ops.quantize import dequantize_unpack, quantize_pack
     from dist_gnn_tpu_torch.ops.relabel import unique_and_relabel
+    from dist_gnn_tpu_torch.parallel import feature_store as dfs
+    from dist_gnn_tpu_torch.parallel.graph_dist import ShardedGraph, sample_neighbors_cached, sample_neighbors_sharded
+    from dist_gnn_tpu_torch.parallel.inference_dist import dist_full_graph_inference
+    from dist_gnn_tpu_torch.parallel.mesh import Mesh, initialize_distributed, launch
+    from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
     from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_sampler
     from dist_gnn_tpu_torch.training import HostTierTrainer, Trainer, masked_nll_loss
@@ -2084,9 +2262,327 @@ def main() -> int:
           "miss_budget": front_cap, "deg_cap": 128, "hops_checked": w_hop_rows, **wfull_res,
           "k7_per_batch": k7_per, "k8_per_batch": k8_per, **card})
 
+    # ---- 16. the distributed package: world 1 on NCCL -----------------------
+    # one rank on the card, its collectives through NCCL; a gloo group of the
+    # same world carries the CPU reference of each check
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        rdv_port = sock.getsockname()[1]
+    mesh = initialize_distributed(f"tcp://localhost:{rdv_port}", 0, 1)
+    check(mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0) and mesh.size == 1,
+          f"world 1: {mesh.backend} on {mesh.device}")
+    cpu_mesh = Mesh(rank=0, size=1, device=torch.device("cpu"), group=dist.new_group([0], backend="gloo"))
+    t_dist = time.perf_counter()
+
+    # dist_exchange: the world-1 exchange is a K1 gather; the owner-side
+    # sampler's table rides NCCL's all_to_all to itself and samples what
+    # sample_neighbors samples on that table; the quantized store and the
+    # hot tier equal the CPU's
+    fr, frm = blocks[-1].frontier, blocks[-1].frontier_mask
+    store_b = dfs.ShardedFeatureStore(features, mesh)
+    reset_counts()
+    mesh.reset_counts()
+    rows_x, uns_x = dfs.exchange_gather(store_b.features, fr, frm, mesh, store_b.shard_size)
+    direct_x = torch.where(frm[:, None], gather.gather_rows(features, torch.where(frm, fr, 0)), 0)
+    check(torch.equal(rows_x, direct_x) and int(uns_x) == 0, "dist_exchange: world-1 exchange != a K1 gather")
+    check(read_counts()["gather_rows"] == 2 and sum(mesh.counts.values()) == 0,
+          f"dist_exchange: the world-1 exchange ran {read_counts()} and collectives {mesh.counts}")
+    q_opts = dict(hot_ids=f_plan, peer_hot=True, quantize=True)
+    store_q = dfs.ShardedFeatureStore(arrays["features"], mesh, **q_opts)
+    store_q_cpu = dfs.ShardedFeatureStore(arrays["features"], cpu_mesh, **q_opts)
+    rq, uq = store_q.fetch_local(fr, frm)
+    rq_cpu, uq_cpu = store_q_cpu.fetch_local(fr.cpu(), frm.cpu())
+    deq = store_q.dequantize(rq).cpu()
+    safe_fr = torch.where(frm, fr, 0).long().cpu()
+    want_q = torch.where(frm.cpu()[:, None], dequantize_unpack(torch.from_numpy(quantize_pack(arrays["features"]))[safe_fr]), 0)
+    check(torch.equal(deq, store_q_cpu.dequantize(rq_cpu)) and torch.equal(deq, want_q) and int(uq) == int(uq_cpu) == 0,
+          "dist_exchange: quantized rows differ between the card, the CPU and the packed matrix")
+    q_hits = int(torch.isin(fr[frm], store_q.hot_sorted).sum())
+    del store_q, store_q_cpu, rq, rq_cpu, deq, want_q
+    sg = ShardedGraph.build(hg, mesh, hot_ids=s_plan)
+    sg_cpu = ShardedGraph.build(hg, cpu_mesh, hot_ids=s_plan)
+    dgen = torch.Generator().manual_seed(900)
+    x_hops = []
+    for i, (blk, kk) in enumerate(zip(blocks, reversed(FAN_OUT))):
+        s_hop, m_hop = blk.seeds, blk.seed_mask
+        L = s_hop.shape[0]
+        budget = dfs.request_budget(L, 1, 4.0)
+        owner_keys, hot_keys = prng.random_keys(dgen, (L,)), prng.random_keys(dgen, (L,))
+        reset_counts()
+        mesh.reset_counts()
+        nb, _ = sample_neighbors_sharded(sg, s_hop, m_hop, kk, False, owner_keys.to(cuda), budget)
+        torch.cuda.synchronize()
+        hop_counts, hop_k6 = dict(mesh.counts), read_counts()["sample_uniform"]
+        n_valid = int(m_hop.sum())
+        order = torch.nonzero(m_hop).flatten()
+        table = torch.full((L,), INVALID_ID, dtype=torch.int32, device=cuda)
+        table[:n_valid] = s_hop[order]
+        direct = sampling.sample_neighbors(graph, table, kk, False, owner_keys.to(cuda))
+        want_ids = torch.full((L, kk), INVALID_ID, dtype=torch.int32, device=cuda)
+        want_ids[order] = torch.where(direct.mask, direct.ids, INVALID_ID)[:n_valid]
+        want_mask = torch.zeros((L, kk), dtype=torch.bool, device=cuda)
+        want_mask[order] = direct.mask[:n_valid]
+        check(torch.equal(nb.ids, want_ids) and torch.equal(nb.mask, want_mask),
+              f"dist_exchange hop {i}: owner-side samples differ from sample_neighbors on the table")
+        check(hop_counts["all_to_all"] == 2 and hop_counts["host_syncs"] == 1 and hop_k6 == 1,
+              f"dist_exchange hop {i}: collectives {hop_counts}, K6 {hop_k6}")
+        key_pair = (hot_keys, owner_keys)
+        nbc, _ = sample_neighbors_cached(sg, s_hop, m_hop, kk, False, tuple(k.to(cuda) for k in key_pair), budget)
+        nbc_cpu, _ = sample_neighbors_cached(sg_cpu, s_hop.cpu(), m_hop.cpu(), kk, False, key_pair, budget)
+        check(torch.equal(nbc.ids.cpu(), nbc_cpu.ids) and torch.equal(nbc.mask.cpu(), nbc_cpu.mask),
+              f"dist_exchange hop {i}: the hot tier's samples differ between the card and the CPU")
+        x_hops.append({
+            "hop": i, "seeds": n_valid, "k": kk, "budget": budget, "collectives": hop_counts,
+            "hot_seeds": int(torch.isin(s_hop[m_hop], sg.hot_sorted).sum()),
+            "sharded_ms": cuda_time_ms(lambda: sample_neighbors_sharded(sg, s_hop, m_hop, kk, False,
+                                                                        owner_keys.to(cuda), budget), iters=10),
+            "cached_ms": cuda_time_ms(lambda: sample_neighbors_cached(sg, s_hop, m_hop, kk, False,
+                                                                      tuple(k.to(cuda) for k in key_pair), budget),
+                                      iters=10),
+            "sample_neighbors_ms": cuda_time_ms(lambda: sampling.sample_neighbors(graph, table, kk, False,
+                                                                                  owner_keys.to(cuda)), iters=10)})
+    del sg_cpu
+    # what one collective costs a step at world 1: event ms per call over
+    # 50 calls (host bound), and a pending-count read back
+    tiny = torch.zeros(1, dtype=torch.int64, device=cuda)
+    table_x = torch.zeros((1, 4096), dtype=torch.int32, device=cuda)
+    coll_ms = {"all_reduce_8B": cuda_time_ms(lambda: mesh.all_reduce(tiny), iters=50),
+               "all_to_all_16KB": cuda_time_ms(lambda: mesh.all_to_all(table_x), iters=50),
+               "sum_to_host": cuda_time_ms(lambda: mesh.sum_to_host(tiny[0]), iters=50),
+               "k1_16KB": cuda_time_ms(lambda: gather.gather_rows(table_x.reshape(-1, 1), table_x[0]), iters=50)}
+    emit({"phase": "dist_exchange", "world": 1, "backend": mesh.backend, "exchange_equals_k1": True,
+          "collective_event_ms_per_call": coll_ms,
+          "frontier_ids": int(frm.sum()), "quantized_equal_cpu_and_packed": True, "quantized_hot_hits": q_hits,
+          "hot_structure_nodes": int((sg.hot_sorted != INVALID_ID).sum()), "hops": x_hops,
+          "owner_side_equals_sample_neighbors": True, "hot_tier_equals_cpu": True, **card})
+
+    # dist_training_sage: DistTrainer (replicated structure, a bf16 store)
+    # beside Trainer, at the bench config under the tuned caps
+    def dist_sage(seed, dtype=torch.bfloat16, dropout=0.5):
+        return SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=dtype, dropout=dropout,
+                    generator=torch.Generator().manual_seed(seed), device=cuda)
+
+    dlabels = store_b.shard_of(labels[:, None])
+    # f32, dropout 0: one dist step and one Trainer step from the same
+    # params on the same seeds and keys
+    m_a = dist_sage(40, None, 0.0)
+    m_b = copy.deepcopy(m_a)
+    store32 = dfs.ShardedFeatureStore(features32, mesh)
+    s0, mk0 = train_batches[0]
+    ma = DistTrainer(model=m_a, fan_out=FAN_OUT, store=store32, dedup_last=False, frontier_caps=caps).train_step(
+        graph, store32.shard_of(labels[:, None]), s0, mk0, torch.Generator(device=cuda).manual_seed(41))
+    mb = Trainer(model=m_b, fan_out=FAN_OUT, dedup_last=False, frontier_caps=caps, device=cuda).train_step(
+        graph, features32, labels, s0, mk0, torch.Generator(device=cuda).manual_seed(41))
+    d_loss_err = abs(float(ma["loss"]) - float(mb["loss"])) / max(1.0, abs(float(mb["loss"])))
+    d_grad_err = {n: share_err(pa.grad, pb.grad) for (n, pa), (_, pb) in zip(m_a.named_parameters(),
+                                                                           m_b.named_parameters())}
+    check(d_loss_err <= LOSS_F32_TOL, f"dist_training_sage: f32 loss {float(ma['loss'])} vs {float(mb['loss'])}")
+    check(all(e <= GRAD_F32_TOL for e in d_grad_err.values()), f"dist_training_sage: f32 gradients {d_grad_err}")
+    del m_a, m_b, store32
+    dtr = DistTrainer(model=dist_sage(42), fan_out=FAN_OUT, store=store_b, dedup_last=False, frontier_caps=caps)
+    str1 = Trainer(model=dist_sage(42), fan_out=FAN_OUT, dedup_last=False, frontier_caps=caps, device=cuda)
+    gen_d, gen_s = torch.Generator(device=cuda).manual_seed(43), torch.Generator(device=cuda).manual_seed(43)
+    dtr.train_step(graph, dlabels, *train_batches[0], gen_d)  # warm-up
+    str1.train_step(graph, features, labels, *train_batches[0], gen_s)
+    dist_ms, single_ms, dist_mets = [], [], []
+    for rnd in range(4):  # 8 dist steps and 8 single-device steps in turns; round 0 warms up
+        torch.cuda.synchronize()
+        reset_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        mets = [dtr.train_step(graph, dlabels, s, mk, gen_d) for s, mk in train_batches[1:]]
+        torch.cuda.synchronize()
+        if rnd:
+            dist_ms.append((time.perf_counter() - t0) / N_STEPS * 1e3)
+        d_launch, d_coll = read_counts(), dict(mesh.counts)
+        dist_mets += mets
+        t0 = time.perf_counter()
+        for s, mk in train_batches[1:]:
+            str1.train_step(graph, features, labels, s, mk, gen_s)
+        torch.cuda.synchronize()
+        if rnd:
+            single_ms.append((time.perf_counter() - t0) / N_STEPS * 1e3)
+    want = {"sample_uniform": 3, "gather_rows": 2, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2}
+    check(d_launch == {k: want.get(k, 0) * N_STEPS for k in counters}, f"dist_training_sage launches {d_launch}")
+    check(d_coll == {"all_to_all": 0, "all_reduce": 3 * N_STEPS, "all_gather": 0, "p2p": 0, "host_syncs": 0},
+          f"dist_training_sage collectives {d_coll}")
+    check(all(np.isfinite(float(m_["loss"])) and int(m_["overflow"]) == int(m_["sampler_overflow"]) == 0
+              for m_ in dist_mets), "dist_training_sage: loss not finite or an overflow")
+    egen = torch.Generator(device=cuda).manual_seed(44)
+    d_edges = sum(int(b.neigh_mask.sum()) for s, mk in train_batches[1:]
+                  for b in sample_blocks(graph, s, mk, FAN_OUT, False, egen, frontier_caps=caps,
+                                         dedup_last=False)[0]) / N_STEPS
+    dkern, dprof = profile_device(lambda: dtr.train_step(graph, dlabels, *train_batches[1], gen_d), iters=3)
+    check(bool(dkern), "dist_training_sage: the profiler recorded no device activity")
+    dkept = profile_device.kept_share
+    dtop = sorted(dkern.items(), key=lambda kv: -kv[1][0])[:10]
+    # 2 epochs, then sampled validation accuracy through eval_step
+    dconv = DistTrainer(model=dist_sage(46), fan_out=FAN_OUT, store=store_b, dedup_last=False, frontier_caps=caps)
+    dcgen = torch.Generator(device=cuda).manual_seed(47)
+    t0 = time.perf_counter()
+    n_dc, dc_ovf = 0, torch.zeros((), dtype=torch.int32, device=cuda)
+    for ep in range(CONV_EPOCHS):
+        for s, mk in conv_seeds.epoch(torch.Generator(device=cuda).manual_seed(220 + ep)):
+            dm = dconv.train_step(graph, dlabels, s, mk, dcgen)
+            dc_ovf = dc_ovf + dm["overflow"] + dm["sampler_overflow"]
+            n_dc += 1
+    torch.cuda.synchronize()
+    dconv_s = time.perf_counter() - t0
+    n_correct = n_total = 0
+    t0 = time.perf_counter()
+    for s, mk in SeedGenerator(arrays["valid_idx"], BATCH, device=cuda).epoch():
+        c_, t_ = dconv.eval_step(None, graph, dlabels, s, mk, dcgen)
+        n_correct, n_total = n_correct + c_, n_total + t_
+    d_val = float(n_correct) / float(n_total)
+    d_eval_s = time.perf_counter() - t0
+    check(int(n_total) == len(arrays["valid_idx"]), "dist eval: every validation seed answered")
+    check(d_val >= VAL_ACC_MIN, f"dist val_acc {d_val} below {VAL_ACC_MIN}")
+    emit({"phase": "dist_training_sage", "world": 1, "backend": mesh.backend, "frontier_caps": list(caps),
+          "steps": N_STEPS, "batch": BATCH, "ms_per_step_rounds": dist_ms,
+          "ms_per_step": float(np.median(dist_ms)), "single_device_ms_per_step_rounds": single_ms,
+          "single_device_ms_per_step": float(np.median(single_ms)),
+          "trained_edges_per_s": d_edges / (float(np.median(dist_ms)) / 1e3), "valid_edges_per_step": d_edges,
+          "launches_per_step": {k: v / N_STEPS for k, v in d_launch.items() if v},
+          "collectives_per_step": {k: v / N_STEPS for k, v in d_coll.items()},
+          "f32_loss_err_vs_trainer": d_loss_err, "f32_grad_share_err_vs_trainer": d_grad_err,
+          "profiled_ms_per_step": dprof / 3, "device_busy_share": sum(ms for ms, _ in dkern.values()) / dprof,
+          "profiler_kept_share": dkept, "device_kernels_per_step": sum(n for _, n in dkern.values()) / 3,
+          "top_kernels_ms_per_step": [[k[:80], ms / 3, n / 3] for k, (ms, n) in dtop],
+          "epochs": CONV_EPOCHS, "epoch_steps": n_dc, "train_s": dconv_s, "epochs_overflow": int(dc_ovf),
+          "eval_s": d_eval_s, "val_acc_sampled": d_val, "val_acc_min": VAL_ACC_MIN, **card})
+    for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k3, "gather_mean"),
+                       (st_k, "slot_transpose"), (k3b, "gather_mean_bwd")):
+        kern["dist_launches_per_step"] = d_launch[name] / N_STEPS
+
+    # dist_training_sage_sharded: owner-side sampling on the sharded graph
+    # with the plan's hot structure, the plan's hot features and the
+    # peer-hot table; then the same with the int8 store
+    runs = {}
+    for tag, qz in (("bf16", False), ("int8", True)):
+        st = dfs.ShardedFeatureStore(arrays["features"] if qz else features, mesh, hot_ids=f_plan, peer_hot=True,
+                                     quantize=qz)
+        run = {"store": st, "labels": st.shard_of(labels[:, None]), "gen": torch.Generator(device=cuda).manual_seed(49),
+               "trainer": DistTrainer(model=dist_sage(48), fan_out=FAN_OUT, store=st, sgraph=sg, dedup_last=False,
+                                      frontier_caps=caps), "ms": [], "mets": []}
+        run["trainer"].train_step(None, run["labels"], *train_batches[0], run["gen"])  # warm-up
+        runs[tag] = run
+    k6_per_hop = 1 + int(sg.hot_indices.numel() > 0)  # the owner's table, and the hot rows
+    for rnd in range(4):  # 8 steps of each store in turns; round 0 warms up
+        for tag, run in runs.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            mesh.reset_counts()
+            t0 = time.perf_counter()
+            run["mets"] += [run["trainer"].train_step(None, run["labels"], s, mk, run["gen"])
+                            for s, mk in train_batches[1:]]
+            torch.cuda.synchronize()
+            if rnd:
+                run["ms"].append((time.perf_counter() - t0) / N_STEPS * 1e3)
+            run["launch"], run["coll"] = read_counts(), dict(mesh.counts)
+            check(run["launch"]["sample_uniform"] == k6_per_hop * len(FAN_OUT) * N_STEPS,
+                  f"dist_training_sage_sharded {tag}: K6 launches {run['launch']['sample_uniform']}")
+    sharded_res = {}
+    for tag, run in runs.items():
+        mets = run["mets"]
+        ovfs = {k: sum(int(m_[k]) for m_ in mets) for k in ("overflow", "sampler_overflow", "frontier_overflow")}
+        check(all(v == 0 for v in ovfs.values()), f"dist_training_sage_sharded {tag}: overflow {ovfs}")
+        check(all(np.isfinite(float(m_["loss"])) for m_ in mets), f"dist_training_sage_sharded {tag}: loss")
+        skern, sprof = profile_device(
+            lambda r=run: r["trainer"].train_step(None, r["labels"], *train_batches[1], r["gen"]), iters=3)
+        check(bool(skern), f"dist_training_sage_sharded {tag}: the profiler recorded no device activity")
+        sharded_res[tag] = {
+            "ms_per_step_rounds": run["ms"], "ms_per_step": float(np.median(run["ms"])), "steps": len(mets),
+            "losses_first_round": [float(m_["loss"]) for m_ in mets[:N_STEPS]],
+            "launches_per_step": {k: v / N_STEPS for k, v in run["launch"].items() if v},
+            "collectives_per_step": {k: v / N_STEPS for k, v in run["coll"].items()},
+            "exchange_rounds_per_step": run["coll"]["host_syncs"] / N_STEPS, "overflow_over_steps": ovfs,
+            "hot_feature_rows": int((run["store"].hot_sorted != INVALID_ID).sum()),
+            "profiled_ms_per_step": sprof / 3, "device_busy_share": sum(ms for ms, _ in skern.values()) / sprof,
+            "profiler_kept_share": profile_device.kept_share}
+    del runs
+    emit({"phase": "dist_training_sage_sharded", "world": 1, "backend": mesh.backend, "steps": N_STEPS,
+          "batch": BATCH, "frontier_caps": list(caps), "hot_structure_nodes": int((sg.hot_sorted != INVALID_ID).sum()),
+          "stores": sharded_res, "single_device_ms_per_step": float(np.median(single_ms)), **card})
+
+    # dist_launches: one GAT step on the replicated graph, one weighted SAGE
+    # step on a weighted sharded graph (alias tables per shard: K8)
+    gat_d = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4, compute_dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(50), device=cuda)
+    gtr = DistTrainer(model=gat_d, fan_out=FAN_OUT, store=store_b, dedup_last=False, frontier_caps=caps)
+    ggen = torch.Generator(device=cuda).manual_seed(51)
+    gtr.train_step(graph, dlabels, *train_batches[0], ggen)
+    torch.cuda.synchronize()
+    reset_counts()
+    gtr.train_step(graph, dlabels, *train_batches[1], ggen)
+    torch.cuda.synchronize()
+    gat_launch = read_counts()
+    check(gat_launch["gat_fwd"] == gat_launch["gat_bwd"] == 3, f"dist GAT step launches {gat_launch}")
+    sg_w = ShardedGraph.build(hg_w, mesh)
+    wtr_d = DistTrainer(model=dist_sage(52), fan_out=FAN_OUT, store=store_b, sgraph=sg_w, dedup_last=False,
+                        frontier_caps=caps)
+    wgen_d = torch.Generator(device=cuda).manual_seed(53)
+    wtr_d.train_step(None, dlabels, *train_batches[0], wgen_d)
+    torch.cuda.synchronize()
+    reset_counts()
+    wm_d = wtr_d.train_step(None, dlabels, *train_batches[1], wgen_d)
+    torch.cuda.synchronize()
+    w_launch = read_counts()
+    check(w_launch["sample_biased_alias"] == 3 and w_launch["sample_uniform"] == 0,
+          f"dist weighted sharded step launches {w_launch}")
+    for kern, name in ((k4, "gat_fwd"), (k5, "gat_bwd")):
+        kern["dist_launches_per_step"] = gat_launch[name]
+    k8["dist_launches_per_step"] = w_launch["sample_biased_alias"]
+    k7["dist_launches_per_step"] = w_launch["sample_biased"]
+    k2["dist_launches_per_step"] = d_launch["gather_rows_dma"] / N_STEPS
+    emit({"phase": "dist_launches", "gat_step": {k: v for k, v in gat_launch.items() if v},
+          "weighted_sharded_sage_step": {k: v for k, v in w_launch.items() if v},
+          "weighted_sampler_overflow": int(wm_d["sampler_overflow"]), **card})
+    del sg_w, wtr_d, gtr, gat_d
+
+    # dist_inference: the ring walk at world 1 against full_graph_inference
+    inf_rows = {}
+    for tag, m in (("sage", model), ("gcn", gcn_model), ("gat", gat_model)):
+        want_i = full_graph_inference(m, None, hg, features, device=cuda)
+        dist_full_graph_inference(m, None, hg, features, mesh)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        got_i = dist_full_graph_inference(m, None, hg, features, mesh)
+        torch.cuda.synchronize()
+        inf_s = time.perf_counter() - t0
+        i_launch = read_counts()
+        err = rel_err(got_i, want_i)
+        check(got_i.shape == want_i.shape and bool(torch.isfinite(got_i.float()).all()), f"dist_inference {tag}: shape")
+        check(err <= LOGITS_BF16_TOL, f"dist_inference {tag}: vs full_graph_inference {err} > {LOGITS_BF16_TOL}")
+        check(i_launch["gather_rows"] > 0 and sum(i_launch.values()) == i_launch["gather_rows"],
+              f"dist_inference {tag}: launches {i_launch}")
+        inf_rows[tag] = {"seconds": inf_s, "edges_per_s": len(FAN_OUT) * hg.num_edges / inf_s,
+                         "rel_err_vs_full_graph_inference": err, "k1_launches": i_launch["gather_rows"],
+                         "collectives": dict(mesh.counts)}
+        del want_i, got_i
+    emit({"phase": "dist_inference", "world": 1, "backend": mesh.backend, "num_nodes": hg.num_nodes,
+          "num_edges": hg.num_edges, "models": inf_rows, **card})
+    dist.destroy_process_group()
+
+    # dist_world2_gloo: two processes on the one card; NCCL refuses two
+    # ranks on one GPU, so gloo carries their CUDA tensors (its
+    # all_to_all_single, all_reduce and all_gather do on this card's
+    # torch; its send/recv do not: scripts/probe_gloo_cuda.py)
+    t0 = time.perf_counter()
+    w2 = launch(world2_gloo, 2, args=(tuple(caps), hg.num_nodes), backend="gloo", device="cuda", timeout_s=600)
+    w2_s = time.perf_counter() - t0
+    check([r["rank"] for r in w2] == [0, 1] and all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in w2),
+          f"dist_world2_gloo: ranks {[(r['rank'], r['backend'], r['device']) for r in w2]}")
+    check(w2[0]["grad"]["loss_dist"] == w2[1]["grad"]["loss_dist"]
+          and w2[0]["train"]["losses"] == w2[1]["train"]["losses"],
+          "dist_world2_gloo: the ranks disagree on the summed loss")
+    emit({"phase": "dist_world2_gloo", "world": 2, "backend": "gloo", "device": "cuda:0", "seconds": w2_s,
+          "ranks": w2, "dist_phases_s": time.perf_counter() - t_dist, **card})
+
     # ---- 15. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "dist_launches_per_step")
     # the profiler's record check saw launches (else it could not work)
     check(profile_device.launches_seen > 0, "the profiler recorded no kernel launch calls")
     emit({"phase": "profiler", "sessions": profile_device.sessions,

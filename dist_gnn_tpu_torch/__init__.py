@@ -20,8 +20,11 @@ double-buffered row copies, run by the gather bench
 and backward kernels), GAT with the fused attention kernels K4 (forward)
 and K5 (backward), GCN, ``Trainer.train_step`` (Adam with coupled L2,
 dropout), ``Trainer.eval_step``, full-graph inference of all three
-families, on the device and host-resident, and the host-resident tiers
-(``host_tier.py``, ``training/pipeline.HostTierTrainer``).
+families, on the device and host-resident, the host-resident tiers
+(``host_tier.py``, ``training/pipeline.HostTierTrainer``), int8 row
+packing (``ops/quantize.py``), and the distributed package on
+``torch.distributed`` (``parallel/``: the sharded feature store and graph,
+owner-side sampling, ``DistTrainer``, the ring full-graph inference).
 """
 
 from dist_gnn_tpu_torch.graph import INVALID_ID, Graph, HostGraph  # noqa: F401

@@ -87,15 +87,20 @@ def build_cache_plan(
     ``capacity_bytes`` is the per-device budget for both hot tiers
     together (``node_classification.py:73,170``); ``device_budget_bytes``
     caps the memory of the heat pass (see :func:`compute_heats`).
-    ``hot_dtype`` (None for f32, or a narrower torch float dtype) sets the
-    bytes of a cached feature row."""
-    if hot_dtype is not None and not hot_dtype.is_floating_point:
-        raise ValueError(f"hot_dtype {hot_dtype} is not a float dtype")
+    ``hot_dtype`` sets the bytes of a cached feature row: None or f32 4F, a
+    narrower float dtype its size times F, ``torch.int8`` the ``F + 4``
+    bytes of a packed row (``ops/quantize.py``), as the JAX package's
+    ``hot_dtype='int8'`` (builder.py:102-110)."""
+    if hot_dtype is not None and not (hot_dtype.is_floating_point or hot_dtype == torch.int8):
+        raise ValueError(f"hot_dtype {hot_dtype} is neither a float dtype nor torch.int8")
     cost = cost or CostModel()
     s_heats, f_heats = compute_heats(
         hg, train_parts, fan_out, device_budget_bytes=device_budget_bytes, device=device
     )
-    frb = None if hot_dtype in (None, torch.float32) else hot_dtype.itemsize * feature_dim
+    if hot_dtype == torch.int8:
+        frb = feature_dim + 4
+    else:
+        frb = None if hot_dtype in (None, torch.float32) else hot_dtype.itemsize * feature_dim
     args = (hg, feature_dim, s_heats, f_heats, capacity_bytes, cost, frb)
     if policy == "selfish":
         mode, plans = "selfish", get_cache_nids_selfish(*args)

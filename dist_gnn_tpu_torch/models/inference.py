@@ -76,9 +76,11 @@ def _inv_sqrt_deg(deg: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.sqrt(deg.to(torch.float32) + 1)
 
 
-def _edge_sum(h, indices, erows, edge_chunk):
-    """sum over in-edges of h[src], per destination row, in f32 [N, F]."""
-    acc = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32, device=h.device)
+def _edge_sum(h, indices, erows, edge_chunk, acc=None):
+    """sum over in-edges of h[src], per destination row, in f32 [N, F]:
+    a fresh sum, or added into ``acc``."""
+    if acc is None:
+        acc = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32, device=h.device)
     for b0 in range(0, indices.shape[0], edge_chunk):
         msg = gather_rows(h, indices[b0 : b0 + edge_chunk])  # K1
         acc.index_add_(0, erows[b0 : b0 + edge_chunk], msg.float())
@@ -109,6 +111,25 @@ def _gat_aggregate(z, el, er, indices, erows, edge_chunk, negative_slope, H, d):
         acc.index_add_(0, rows, (zs * w[:, :, None]).reshape(-1, H * d))
     agg = acc.reshape(N, H, d) / denom[:, :, None]
     return torch.where(denom[:, :, None] > 0, agg, 0.0)
+
+
+def _gat_online(m, s, acc, el_dst, er_src, z_src, rows, negative_slope):
+    """Fold one slab of edges into GAT's running per-row, per-head softmax
+    state: the maximum ``m`` [N, H], the sum ``s`` of ``exp(score - m)`` and
+    the weighted sum ``acc`` [N, H, d] of the source rows, each rescaled when
+    the maximum grows.  ``el_dst``/``er_src`` [E, H] f32 are the slab's
+    destination and source scores, ``z_src`` [E, H*d] its projected source
+    rows, ``rows`` [E] their destination rows.  Returns ``(m, s, acc)``."""
+    H, d = acc.shape[1], acc.shape[2]
+    score = F.leaky_relu(el_dst + er_src, negative_slope)
+    m_new = m.scatter_reduce(0, rows[:, None].expand(-1, H), score, "amax")
+    scale = torch.exp(m - m_new)
+    w = torch.exp(score - m_new[rows])
+    s = s * scale
+    s.index_add_(0, rows, w)
+    acc = acc * scale[:, :, None]
+    acc.index_add_(0, rows, w[:, :, None] * z_src.float().reshape(-1, H, d))
+    return m_new, s, acc
 
 
 @torch.inference_mode()
@@ -235,15 +256,7 @@ def full_graph_inference_host(
                 rows = rows_chunk[b0 - e_lo : b0 - e_lo + n]
                 if is_gat:
                     z_src, _, er_src = model._project(p, msg, d_out)
-                    score = F.leaky_relu(el_self[rows] + er_src, model.negative_slope)
-                    m_new = m.scatter_reduce(0, rows[:, None].expand(-1, H), score, "amax")
-                    scale = torch.exp(m - m_new)
-                    w = torch.exp(score - m_new[rows])
-                    s = s * scale
-                    s.index_add_(0, rows, w)
-                    acc = acc * scale[:, :, None]
-                    acc.index_add_(0, rows, w[:, :, None] * z_src.float().reshape(n, H, d_out))
-                    m = m_new
+                    m, s, acc = _gat_online(m, s, acc, el_self[rows], er_src, z_src, rows, model.negative_slope)
                 else:
                     acc.index_add_(0, rows, msg)
             if is_gat:

@@ -34,19 +34,24 @@ def np_in_sorted(table: np.ndarray, ids) -> Tuple[np.ndarray, np.ndarray]:
 class SortedIdTable:
     """Maps id → slot for a cached id set: ``slots[i]`` is the cache row of
     ``sorted_ids[i]``, its position in the ids the table was built from;
-    :meth:`lookup` returns (slot, hit)."""
+    :meth:`lookup` returns (slot, hit).  ``owners``, when built with one,
+    is the owning device of each id (the peer-hot routing table,
+    ``parallel/feature_store.build_union_tables``)."""
 
     sorted_ids: torch.Tensor  # [C] int32, strictly increasing
     slots: torch.Tensor  # [C] int32 — cache row per id
+    owners: Optional[torch.Tensor] = None  # [C] int32 — owning device per id
 
     @staticmethod
     def build(
         cache_nids: np.ndarray,
         priority: Optional[np.ndarray] = None,
         device: DeviceLike = None,
+        owners: Optional[np.ndarray] = None,
     ) -> "SortedIdTable":
         """Host-side build, placed on ``device`` (default: the card).  On
-        duplicate ids the entry with the lowest ``priority`` wins."""
+        duplicate ids the entry with the lowest ``priority`` wins, and its
+        ``owners`` entry with it."""
         dev = resolve_device(device)
         cache_nids = np.asarray(cache_nids, dtype=np.int32)
         n = len(cache_nids)
@@ -60,6 +65,10 @@ class SortedIdTable:
         return SortedIdTable(
             sorted_ids=torch.from_numpy(cache_nids[order]).to(dev),
             slots=torch.from_numpy(order.astype(np.int32)).to(dev),
+            owners=(
+                None if owners is None
+                else torch.from_numpy(np.asarray(owners, np.int32)[order]).to(dev)
+            ),
         )
 
     @property

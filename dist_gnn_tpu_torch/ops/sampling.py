@@ -486,6 +486,17 @@ def sample_biased_alias(
 sample_biased_alias.launches = 0
 
 
+def sampler_keys(graph: Graph, B: int, k: int, replace: bool, key, device):
+    """The keys one :func:`sample_neighbors` call on ``B`` seeds takes,
+    drawn from ``key`` now (or checked, when injected) in the form that
+    call accepts, so several calls can draw identically (the owner-side
+    sampler's rounds, ``parallel/graph_dist.py``)."""
+    if graph.probs is not None and graph.alias_prob is not None:
+        bits, gum = alias_keys(key, B, k, replace, device)
+        return bits if gum is None else (bits, gum)
+    return draw_keys(key, (B, k) if replace else (B,), device)
+
+
 def sample_neighbors(
     graph: Graph, seeds: torch.Tensor, k: int, replace: bool, key
 ) -> SampledNeighbors:

@@ -22,7 +22,7 @@ keys.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -134,14 +134,33 @@ def sample_blocks(
     """
     if not isinstance(key, torch.Generator) and len(key) != len(fan_out):
         raise ValueError(f"need {len(fan_out)} per-hop keys, got {len(key)}")
+
+    def hop(i, s, _mask, k):
+        nb = sample_neighbors(graph, s, k, replace, key if isinstance(key, torch.Generator) else key[i])
+        return nb, nb.overflow
+
+    return blocks_from_hops(hop, seeds, seed_mask, fan_out, frontier_caps, dedup_last)
+
+
+def blocks_from_hops(
+    sample_hop: Callable,
+    seeds: torch.Tensor,
+    seed_mask: torch.Tensor,
+    fan_out: Tuple[int, ...],
+    frontier_caps: Optional[Tuple[int, ...]] = None,
+    dedup_last: bool = True,
+):
+    """The layer loop of :func:`sample_blocks` over any per-hop sampler:
+    ``sample_hop(i, seeds, seed_mask, k) -> (SampledNeighbors, overflow)``
+    samples hop ``i`` (the distributed trainer's owner-side sampler is
+    one).  Returns ``(blocks, stats)`` as :func:`sample_blocks` does."""
     dev = seeds.device
     blocks = []
     samp_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     front_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     for i, k in enumerate(reversed(list(fan_out))):
-        hop_key = key if isinstance(key, torch.Generator) else key[i]
-        nb = sample_neighbors(graph, seeds, k, replace, hop_key)
-        samp_ovf = samp_ovf + nb.overflow
+        nb, ovf = sample_hop(i, seeds, seed_mask, k)
+        samp_ovf = samp_ovf + ovf
         if not dedup_last and i == len(fan_out) - 1:
             blocks.append(_no_dedup_block(seeds, seed_mask, nb))
             break
@@ -153,11 +172,11 @@ def sample_blocks(
                 raise ValueError(
                     f"frontier cap {budget} must cover the {seeds.shape[0]} seeds"
                 )
-            frontier, frontier_mask, num_frontier, slots, keep, ovf = (
+            frontier, frontier_mask, num_frontier, slots, keep, fovf = (
                 _truncate_frontier(rl, budget)
             )
             neigh_mask = neigh_mask & keep
-            front_ovf = front_ovf + ovf.to(torch.int32)
+            front_ovf = front_ovf + fovf.to(torch.int32)
         else:
             frontier, frontier_mask, num_frontier, slots = (
                 rl.frontier,

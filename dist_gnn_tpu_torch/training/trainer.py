@@ -45,10 +45,9 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, weight_decay
     return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
 
 
-def masked_nll_loss(model, dedup_last: bool, blocks, feats, labels, seed_mask, rng):
-    """(loss, acc) over the masked seeds, the training objective
-    (trainer.py:59-77): mean NLL of the f32 log-softmax over valid seeds,
-    and the share of them predicted right (no gradient)."""
+def _masked_nll(model, dedup_last: bool, blocks, feats, labels, seed_mask, rng):
+    """Forward in train mode; ``(the NLL of the f32 log-softmax summed over
+    the masked seeds, the count of them predicted right)``."""
     logits = model(
         tuple(reversed(blocks)), feats, train=True, rng=rng, contiguous_first=not dedup_last
     )
@@ -56,11 +55,28 @@ def masked_nll_loss(model, dedup_last: bool, blocks, feats, labels, seed_mask, r
     ll = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(ll, 1, labels[:, None].long())[:, 0]
     nll = torch.where(seed_mask, nll, 0.0)
-    n = torch.clamp(seed_mask.sum(dtype=torch.float32), min=1.0)
-    loss = nll.sum() / n
     correct = (torch.argmax(logits, dim=-1).to(torch.int32) == labels) & seed_mask
-    acc = correct.sum(dtype=torch.float32) / n
-    return loss, acc.detach()
+    return nll.sum(), correct.sum(dtype=torch.float32)
+
+
+def masked_nll_loss(model, dedup_last: bool, blocks, feats, labels, seed_mask, rng):
+    """(loss, acc) over the masked seeds, the training objective
+    (trainer.py:59-77): mean NLL of the f32 log-softmax over valid seeds,
+    and the share of them predicted right (no gradient)."""
+    nll, correct = _masked_nll(model, dedup_last, blocks, feats, labels, seed_mask, rng)
+    n = torch.clamp(seed_mask.sum(dtype=torch.float32), min=1.0)
+    return nll / n, (correct / n).detach()
+
+
+def dist_masked_nll_loss(model, dedup_last: bool, mesh, blocks, feats, labels, seed_mask, rng):
+    """The distributed objective (trainer.py:80-101): ``(loss, (acc_sum,
+    denom))``, the local NLL sum over the GLOBAL valid count (an
+    all-reduce of the local counts), so the sum of the ranks' gradients is
+    the gradient of the whole batch's mean loss.  ``acc_sum`` counts this
+    rank's right predictions (no gradient)."""
+    nll, correct = _masked_nll(model, dedup_last, blocks, feats, labels, seed_mask, rng)
+    denom = torch.clamp(mesh.all_reduce(seed_mask.sum(dtype=torch.float32).reshape(1)), min=1.0)[0]
+    return nll / denom, (correct, denom)
 
 
 @dataclasses.dataclass(eq=False)

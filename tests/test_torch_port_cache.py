@@ -254,9 +254,12 @@ def test_pad_plans_is_jax_s():
 
 
 def test_build_cache_plan_refuses_an_integer_hot_dtype():
+    """int8 is the packed quantized row (F + 4 bytes); any other integer
+    dtype has no row layout and is refused."""
     thg, _, _ = _graph(12)
-    with pytest.raises(ValueError):
-        builder.build_cache_plan(thg, 16, [np.arange(10)], (2,), 1000, hot_dtype=torch.int8, device="cpu")
+    for dtype in (torch.int16, torch.int32):
+        with pytest.raises(ValueError):
+            builder.build_cache_plan(thg, 16, [np.arange(10)], (2,), 1000, hot_dtype=dtype, device="cpu")
 
 
 # ---- cache/cost_model ----------------------------------------------------

@@ -34,6 +34,8 @@ def test_walk_covers_the_package():
                    "utils/native.py", "utils/staging.py", "ops/hashtable.py", "feature_server.py",
                    "ops/heat.py", "cache/cost_model.py", "cache/policy.py", "cache/builder.py",
                    "host_tier.py", "training/pipeline.py", "cache/autotune.py", "utils/metrics.py",
-                   "training/checkpoint.py", "ops/sampling.py", "graph.py"):
+                   "training/checkpoint.py", "ops/sampling.py", "graph.py", "ops/quantize.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/feature_store.py",
+                   "parallel/graph_dist.py", "parallel/trainer_dist.py", "parallel/inference_dist.py"):
         assert f"dist_gnn_tpu_torch/{module}" in names
     assert len(names) >= 20
