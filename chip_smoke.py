@@ -154,10 +154,36 @@ weights from a seed.  Phases, one JSON line each:
     exchange, peer-hot rows from the other rank, the gradient protocol
     and 4 ``DistTrainer`` steps on the ``ShardedGraph``).
 
+17. the distributed host-resident tiers (``parallel/host_dist.py``,
+    ``parallel/host_struct.py``), world 1 on NCCL again (a new group after
+    the world-2 phase): dist_host_features (the 20% plan's feature hot set,
+    structure on the card, the feature budget from ``tune_dist_tier``:
+    (b) ``assemble_local`` equals a plain gather of the host matrix exactly
+    through one K1 launch and no collective; (a) one f32 dropout-0
+    ``DistHostTrainer.compute_step`` against ``HostTierTrainer.compute_step``
+    on the same blocks and keys, loss 1e-5, gradients 1e-3; 2 warm-up and
+    12 timed ``train_batches`` batches in turns with ``HostTierTrainer`` on
+    the same batches and hot set: ms, stage ms, staged rows, launches,
+    collectives and host syncs per batch; 2 epochs and the sampled val_acc
+    through ``eval_batches``, >= 0.99); dist_host_full (the structure
+    host-resident too, ``DistHostCSCStore`` with the plan's structure hot set
+    and ``tune_dist_tier``'s budget and deg_cap: each hop of a request on
+    the card equals the CPU bit for bit on injected keys, with the struct
+    stats and hub-presampling ms; 12 timed batches in turns with
+    ``HostTierTrainer``; then the weighted graph, the 5% of nodes of highest
+    degree hot, card == CPU per hop under the 2-ulp near-tie rule, K8 and K7
+    launched, 4 timed batches); dist_host_world2_gloo (two spawned ranks on
+    the card over gloo, ``dist_host_world2``: selfless stages fewer host rows
+    than selfish at equal capacity, peer-hot rows served by the other rank
+    with ``peer_dropped`` 0, equal params after 3 batches,
+    ``calibrate_ici`` over gloo, through the host).
+
 Then the profiler's count of sessions that lost kernel records
 (``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
 K1, K2, K3, K3-bwd, K4, K5, the slot transpose, K7, K8, each with its
-device ms and its launches per distributed step), the card's name and
+device ms, its launches per distributed step and per ``DistHostTrainer``
+batch at world 1: K7 and K8 from the weighted host-structure run, the
+others from dist_host_features), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises, and
 the script exits non-zero without the last line.  It needs no network
@@ -477,6 +503,106 @@ def world2_gloo(mesh, caps, num_nodes) -> dict:
     return out
 
 
+def dist_host_world2(mesh, num_nodes) -> dict:
+    """One rank of the dist_host_world2_gloo phase (two ranks on the card over
+    gloo): each builds the bench graph (``num_nodes`` 500,000) and its f32
+    features in host memory from the seed, and trains ``DistHostTrainer``
+    (structure on the card, 512 seeds a rank) under two feature plans of
+    equal per-rank capacity, a tenth of the nodes: selfless (the
+    highest-degree fifth split between the ranks) and selfish (the
+    highest-degree tenth on both); after a warm-up batch each, 3 batches
+    twice, in turns.  Checks: (a) selfless stages strictly fewer host rows
+    than selfish on the same batches; (b) on one batch's frontier,
+    ``assemble_local`` equals the host matrix exactly, with rows hot only
+    on the other rank served from it and ``peer_dropped`` 0; (c) every
+    batch's ``peer_dropped`` 0 and the ranks' params equal after training.
+    Also ``calibrate_ici`` over this gloo pair (through the host, not
+    NVLink).  Returns its measures."""
+    import numpy as np
+    import torch
+
+    from dist_gnn_tpu_torch.cache.cost_model import calibrate_ici
+    from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
+    from dist_gnn_tpu_torch.graph import HostGraph
+    from dist_gnn_tpu_torch.models.sage import SAGE
+    from dist_gnn_tpu_torch.parallel.feature_store import request_budget
+    from dist_gnn_tpu_torch.parallel.host_dist import DistHostFeatureStore, DistHostTrainer
+    from dist_gnn_tpu_torch.sampler import sample_blocks
+
+    cuda, n, me = mesh.device, mesh.size, mesh.rank
+    sync = torch.cuda.synchronize if cuda.type == "cuda" else (lambda: None)
+    out = {"rank": me, "backend": mesh.backend, "device": str(cuda)}
+    arrays, meta = make_synthetic_dataset(
+        num_nodes=num_nodes, avg_degree=30, feature_dim=100, num_classes=47, train_frac=0.2, seed=0,
+    )
+    hg = HostGraph(indptr=arrays["indptr"], indices=arrays["indices"])
+    feats = np.ascontiguousarray(arrays["features"], np.float32)
+    labels_np = np.asarray(arrays["labels"], np.int32)
+    graph = hg.to_device(cuda)
+    C = hg.num_nodes // 10
+    order = np.argsort(-np.diff(hg.indptr.astype(np.int64)), kind="stable").astype(np.int32)
+    plans = {"selfless": order[: n * C].reshape(C, n).T.copy(), "selfish": np.tile(order[:C], (n, 1))}
+    rng = np.random.default_rng(90)
+    batches = [(rng.choice(arrays["train_idx"], n * BATCH, replace=False).astype(np.int32), np.ones(n * BATCH, bool))
+               for _ in range(4)]  # one warm-up, 3 timed
+    # (b) one frontier through the three tiers
+    store = DistHostFeatureStore(feats, mesh, plans["selfless"], miss_budget=1 << 15)
+    mine = slice(me * BATCH, (me + 1) * BATCH)
+    blk, _ = sample_blocks(graph, torch.from_numpy(batches[0][0][mine]).to(cuda),
+                           torch.ones(BATCH, dtype=torch.bool, device=cuda), FAN_OUT, False,
+                           torch.Generator(device=cuda).manual_seed(91 + me), dedup_last=False)
+    fr, frm = blk[-1].frontier, blk[-1].frontier_mask
+    fr_np, frm_np = fr.cpu().numpy(), frm.cpu().numpy()
+    staged = store.stage(fr_np, frm_np)
+    staged.wait()
+    mesh.reset_counts()
+    rows, dropped = store.assemble_local(fr, frm, staged, request_budget(fr.shape[0], n, 4.0))
+    want = np.where(frm_np[:, None], feats[np.where(frm_np, fr_np, 0)], 0)
+    peer = frm_np & np.isin(fr_np, plans["selfless"][1 - me]) & ~np.isin(fr_np, plans["selfless"][me])
+    check(np.array_equal(rows.cpu().numpy(), want) and int(dropped) == 0,
+          f"dist host world 2 rank {me}: assembled rows differ from the host matrix or peer_dropped {int(dropped)}")
+    check(int(peer.sum()) > 0 and mesh.counts["all_to_all"] >= 2, f"dist host world 2 rank {me}: no peer-hot rows")
+    out["assemble"] = {"frontier_slots": int(frm_np.sum()), "staged_rows": staged.count,
+                       "peer_hot_rows": int(peer.sum()), "peer_rounds": mesh.counts["host_syncs"]}
+    # (a), (c): the same batches under both plans, from the same params,
+    # after a warm-up batch each, timed in turns (selfless, selfish,
+    # selfish, selfless)
+    runs = {}
+    for name, plan in plans.items():
+        st = store if name == "selfless" else DistHostFeatureStore(feats, mesh, plan, miss_budget=1 << 15)
+        tr = DistHostTrainer(model=SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                                        generator=torch.Generator().manual_seed(92), device=cuda),
+                             fan_out=FAN_OUT, store=st, dedup_last=False)
+        tr.train_batches(graph, labels_np, batches[:1], 93)
+        runs[name] = {"store": st, "trainer": tr, "ms_per_batch_rounds": []}
+    for order in (("selfless", "selfish"), ("selfish", "selfless")):
+        for name in order:
+            run = runs[name]
+            sync()
+            mesh.reset_counts()
+            t0 = time.perf_counter()
+            mets = run["trainer"].train_batches(graph, labels_np, batches[1:], 94)
+            sync()
+            run["ms_per_batch_rounds"].append((time.perf_counter() - t0) / len(mets) * 1e3)
+            run["collectives_per_batch"] = {k: v / len(mets) for k, v in mesh.counts.items()}
+            check(all(int(m_["peer_dropped"]) == 0 and np.isfinite(float(m_["loss"])) for m_ in mets),
+                  f"dist host world 2 rank {me} {name}: peer_dropped or loss")
+            run.update(staged_rows=[m_["feat_miss"] for m_ in mets], stage_ms=[m_["stage_ms"] for m_ in mets],
+                       losses=[float(m_["loss"]) for m_ in mets],
+                       host_syncs_per_batch=mesh.counts["host_syncs"] / len(mets))
+    for name, run in runs.items():
+        psum = torch.stack([p.detach().double().sum() for p in run.pop("trainer").model.parameters()]).sum().reshape(1)
+        sums = [float(x) for x in mesh.all_gather(psum)]
+        check(sums[0] == sums[1], f"dist host world 2 rank {me} {name}: the ranks' params differ ({sums})")
+        run["union_hit_rate"] = run.pop("store").union_hit_rate(fr_np[frm_np])
+    check(sum(runs["selfless"]["staged_rows"]) < sum(runs["selfish"]["staged_rows"]),
+          f"dist host world 2 rank {me}: selfless staged {runs['selfless']['staged_rows']}, "
+          f"selfish {runs['selfish']['staged_rows']}")
+    out["plans"] = runs
+    out["calibrate_ici_gloo_host_Bps"] = calibrate_ici(mesh)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -492,7 +618,7 @@ def main() -> int:
     from dist_gnn_tpu_torch.cache.builder import build_cache_plan, compute_heats
     from dist_gnn_tpu_torch.cache.cost_model import calibrate, calibrate_host_staging
     from dist_gnn_tpu_torch.cache.policy import structure_space_bytes
-    from dist_gnn_tpu_torch.cache.autotune import tune_sampler_for
+    from dist_gnn_tpu_torch.cache.autotune import tune_dist_tier, tune_sampler_for
     from dist_gnn_tpu_torch.dataloading.preprocess import add_random_probs, make_synthetic_dataset
     from dist_gnn_tpu_torch.dataloading.seeds import SeedGenerator
     from dist_gnn_tpu_torch.graph import INVALID_ID, HostGraph
@@ -510,6 +636,8 @@ def main() -> int:
     from dist_gnn_tpu_torch.ops.relabel import unique_and_relabel
     from dist_gnn_tpu_torch.parallel import feature_store as dfs
     from dist_gnn_tpu_torch.parallel.graph_dist import ShardedGraph, sample_neighbors_cached, sample_neighbors_sharded
+    from dist_gnn_tpu_torch.parallel.host_dist import DistHostFeatureStore, DistHostTrainer
+    from dist_gnn_tpu_torch.parallel.host_struct import DistHostCSCStore
     from dist_gnn_tpu_torch.parallel.inference_dist import dist_full_graph_inference
     from dist_gnn_tpu_torch.parallel.mesh import Mesh, initialize_distributed, launch
     from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
@@ -2580,9 +2708,273 @@ def main() -> int:
     emit({"phase": "dist_world2_gloo", "world": 2, "backend": "gloo", "device": "cuda:0", "seconds": w2_s,
           "ranks": w2, "dist_phases_s": time.perf_counter() - t_dist, **card})
 
+    # ---- 17. the distributed host-resident tiers, world 1 on NCCL ----------
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        rdv_port = sock.getsockname()[1]
+    mesh = initialize_distributed(f"tcp://localhost:{rdv_port}", 0, 1)
+    check(mesh.backend == "nccl" and mesh.size == 1, f"dist host world 1: {mesh.backend}, {mesh.size}")
+    cpu_mesh1 = Mesh(rank=0, size=1, device=torch.device("cpu"))  # the stores' CPU twins run no collective
+    t_dh = time.perf_counter()
+
+    # dist_host_features: the 20% plan's feature hot set, structure on the
+    # card, the feature budget from tune_dist_tier
+    t0 = time.perf_counter()
+    tier_f = tune_dist_tier(hg.indptr, hg.indices, arrays["train_idx"], BATCH, FAN_OUT, 1, hot_ids=f_plan)
+    tune_f_s = time.perf_counter() - t0
+    dh_store = DistHostFeatureStore(feats_host, mesh, f_plan, miss_budget=tier_f.feat_miss_budget)
+    ht_store = HostFeatureStore(feats_host, f_hot, miss_budget=tier_f.feat_miss_budget, device=cuda)
+    # (b) assemble_local equals a plain gather of the host matrix, through
+    # one K1 launch and no collective (a world of one fetches nothing)
+    blk_b, _ = sample_blocks(graph, torch.from_numpy(host_batches[0][0]).to(cuda),
+                             torch.ones(BATCH, dtype=torch.bool, device=cuda), FAN_OUT, False,
+                             torch.Generator(device=cuda).manual_seed(310), dedup_last=False)
+    fr_b, frm_b = blk_b[-1].frontier, blk_b[-1].frontier_mask
+    fr_np, frm_np = fr_b.cpu().numpy(), frm_b.cpu().numpy()
+    st_b = dh_store.stage(fr_np, frm_np)
+    st_b.wait()
+    budget_b = dfs.request_budget(fr_b.shape[0], 1, 4.0)
+    reset_counts()
+    mesh.reset_counts()
+    rows_b, drop_b = dh_store.assemble_local(fr_b, frm_b, st_b, budget_b)
+    torch.cuda.synchronize()
+    asm_launch, asm_coll = read_counts(), dict(mesh.counts)
+    want_b = torch.from_numpy(np.where(frm_np[:, None], feats_host[np.where(frm_np, fr_np, 0)], 0))
+    check(torch.equal(rows_b.cpu(), want_b) and int(drop_b) == 0,
+          f"dist_host_features (b): assemble_local differs from the host matrix (peer_dropped {int(drop_b)})")
+    check(0 < st_b.count < int(frm_b.sum()), "dist_host_features (b): both tiers in use")
+    check(asm_launch["gather_rows"] == 1 and sum(asm_launch.values()) == 1 and sum(asm_coll.values()) == 0,
+          f"dist_host_features (b): assemble_local ran {asm_launch} and collectives {asm_coll}")
+    asm_ms = cuda_time_ms(lambda: dh_store.assemble_local(fr_b, frm_b, st_b, budget_b), iters=10)
+    # (a) one f32 dropout-0 batch: DistHostTrainer.compute_step against
+    # HostTierTrainer.compute_step on the same blocks, rows and keys
+    m_a = dist_sage(71, None, 0.0)
+    m_b = copy.deepcopy(m_a)
+    dh_a = DistHostTrainer(model=m_a, fan_out=FAN_OUT, store=dh_store, dedup_last=False)
+    ht_b = HostTierTrainer(model=m_b, fan_out=FAN_OUT, store=ht_store, dedup_last=False, device=cuda)
+    lab_b = ht_b.batch_labels(labels_np, *host_batches[0])
+    mk_b = torch.from_numpy(host_batches[0][1]).to(cuda)
+    ma = dh_a.compute_step(blk_b, dh_store.stage(fr_np, frm_np), lab_b, mk_b,
+                           torch.Generator(device=cuda).manual_seed(72))
+    mb = ht_b.compute_step(blk_b, ht_store.stage(fr_np, frm_np), lab_b, mk_b,
+                           torch.Generator(device=cuda).manual_seed(72))
+    dh_loss_err = abs(float(ma["loss"]) - float(mb["loss"])) / max(1.0, abs(float(mb["loss"])))
+    dh_grad_err = {n_: share_err(pa.grad, pb.grad) for (n_, pa), (_, pb) in zip(m_a.named_parameters(),
+                                                                               m_b.named_parameters())}
+    check(dh_loss_err <= LOSS_F32_TOL, f"dist_host_features (a): f32 loss {float(ma['loss'])} vs {float(mb['loss'])}")
+    check(all(e <= GRAD_F32_TOL for e in dh_grad_err.values()), f"dist_host_features (a): gradients {dh_grad_err}")
+    check(int(ma["peer_dropped"]) == 0, "dist_host_features (a): peer_dropped")
+    del m_a, m_b, dh_a, ht_b
+
+    def dist_host_turns(dtr, htr, g, batches, n_timed):
+        """``dtr.train_batches`` and ``htr.train_batches`` on the same batches
+        in turns (d, h, h, d) after one warm-up call each; returns (dist ms
+        per batch per round, host-tier ms per round, the dist run's last
+        metrics, launch counts and collectives)."""
+        for tr in (dtr, htr):
+            tr.train_batches(g, labels_np, batches[:N_WARM], 0)
+        d_ms, h_ms, last = [], [], None
+        for rnd, order in enumerate(((dtr, htr), (htr, dtr))):
+            for tr in order:
+                torch.cuda.synchronize()
+                reset_counts()
+                mesh.reset_counts()
+                t0 = time.perf_counter()
+                mets = tr.train_batches(g, labels_np, batches[N_WARM:N_WARM + n_timed], 1 + rnd)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / n_timed * 1e3
+                if tr is dtr:
+                    d_ms.append(ms)
+                    last = (mets, read_counts(), dict(mesh.counts))
+                else:
+                    h_ms.append(ms)
+        return d_ms, h_ms, last
+
+    def dist_host_measures(mets, launch, coll, n_timed):
+        check(all(int(m_["peer_dropped"]) == 0 and np.isfinite(float(m_["loss"])) for m_ in mets),
+              "dist host batches: peer_dropped or a loss not finite")
+        out = {"launches_per_batch": {k: v / n_timed for k, v in launch.items() if v},
+               "collectives_per_batch": {k: v / n_timed for k, v in coll.items()},
+               "host_syncs_per_batch": coll["host_syncs"] / n_timed,
+               "losses": [float(m_["loss"]) for m_ in mets]}
+        for k in ("sample_ms", "stage_ms", "stage_h2d_ms", "feat_miss", "struct_miss", "struct_remote",
+                  "struct_plan_ms", "struct_presample_ms"):
+            if k in mets[0]:
+                out[k + "_per_batch"] = float(np.mean([m_[k] for m_ in mets]))
+        for k in ("feat_overflow", "struct_overflow", "sampler_overflow"):
+            if k in mets[0]:
+                out[k] = sum(m_[k] for m_ in mets)
+        return out
+
+    dh_ms, ht_ms, (dh_mets, dh_launch, dh_coll) = dist_host_turns(
+        DistHostTrainer(model=fresh_sage(73), fan_out=FAN_OUT, store=dh_store, dedup_last=False),
+        HostTierTrainer(model=fresh_sage(73), fan_out=FAN_OUT, store=ht_store, dedup_last=False, device=cuda),
+        graph, host_batches, N_TIMED)
+    want = {"sample_uniform": 3, "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2}
+    check(dh_launch == {k: want.get(k, 0) * N_TIMED for k in counters}, f"dist_host_features launches {dh_launch}")
+    check(dh_coll == {"all_to_all": 0, "all_reduce": 3 * N_TIMED + 1, "all_gather": 0, "p2p": 0, "host_syncs": 0},
+          f"dist_host_features collectives {dh_coll}")
+    dh_res = dist_host_measures(dh_mets, dh_launch, dh_coll, N_TIMED)
+    # 2 epochs, then the sampled validation accuracy through eval_batches
+    conv_dh = DistHostTrainer(model=fresh_sage(74), fan_out=FAN_OUT, store=dh_store, dedup_last=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_dh = 0
+    for ep in range(CONV_EPOCHS):
+        order = np.random.default_rng(600 + ep).permutation(arrays["train_idx"]).astype(np.int32)
+        ep_batches = [(order[b * BATCH:(b + 1) * BATCH], np.ones(BATCH, bool)) for b in range(len(order) // BATCH)]
+        mets_dh = conv_dh.train_batches(graph, labels_np, ep_batches, 700 + ep)
+        n_dh += len(ep_batches)
+    torch.cuda.synchronize()
+    conv_dh_s = time.perf_counter() - t0
+    valid = arrays["valid_idx"].astype(np.int32)
+    n_vb = -(-len(valid) // BATCH)
+    vpad = np.full(n_vb * BATCH, INVALID_ID, np.int32)
+    vpad[:len(valid)] = valid
+    val_batches = [(vpad[b * BATCH:(b + 1) * BATCH], vpad[b * BATCH:(b + 1) * BATCH] != INVALID_ID)
+                   for b in range(n_vb)]
+    t0 = time.perf_counter()
+    dh_correct, dh_total = conv_dh.eval_batches(None, graph, labels_np, val_batches, 800)
+    dh_eval_s = time.perf_counter() - t0
+    dh_val = dh_correct / dh_total
+    check(dh_total == len(valid), f"dist host eval answered {dh_total} of {len(valid)} seeds")
+    check(dh_val >= VAL_ACC_MIN, f"dist host val_acc {dh_val} below {VAL_ACC_MIN}")
+    emit({"phase": "dist_host_features", "world": 1, "backend": mesh.backend, "tier": dataclasses.asdict(tier_f),
+          "tune_dist_tier_s": tune_f_s, "hot_feature_rows": len(f_hot), "batches": N_TIMED,
+          "ms_per_batch_rounds": dh_ms, "ms_per_batch": float(np.median(dh_ms)),
+          "host_tier_trainer_ms_per_batch_rounds": ht_ms, "host_tier_trainer_ms_per_batch": float(np.median(ht_ms)),
+          **dh_res, "assemble_exact": True, "assemble_event_ms": asm_ms, "assemble_staged_rows": st_b.count,
+          "f32_loss_err_vs_host_tier_trainer": dh_loss_err, "f32_grad_share_err_vs_host_tier_trainer": dh_grad_err,
+          "epochs": CONV_EPOCHS, "epoch_batches": n_dh, "train_s": conv_dh_s,
+          "final_loss": float(mets_dh[-1]["loss"]), "eval_s": dh_eval_s, "val_acc_sampled": dh_val,
+          "val_acc_min": VAL_ACC_MIN, "seconds": time.perf_counter() - t_dh, **card})
+    for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k2, "gather_rows_dma"), (k3, "gather_mean"),
+                       (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose")):
+        kern["dist_host_launches_per_batch"] = dh_launch[name] / N_TIMED
+
+    # dist_host_full: the structure host-resident too, the 20% plan's
+    # structure hot set, the budget and deg_cap from tune_dist_tier
+    t_full = time.perf_counter()
+    t0 = time.perf_counter()
+    tier_s = tune_dist_tier(hg.indptr, hg.indices, arrays["train_idx"], BATCH, FAN_OUT, 1, hot_ids=s_plan)
+    tune_s_s = time.perf_counter() - t0
+
+    def staged_hops(stores, weighted, rng_base, kgen, name):
+        """Each hop of a request on the card against the CPU: plan_hop of
+        the card's and the CPU's DistHostCSCStore from one hub seed, then
+        sample_staged_hop on injected keys: ids and mask equal (on a
+        weighted graph except 2-ulp near-ties, counted); per hop the
+        staged rows, hub rows, remote rows, presampling ms and launches."""
+        seeds_h, mask_h = host_batches[0]
+        hops = []
+        for i, kk in enumerate(reversed(FAN_OUT)):
+            loc_g, st_g = stores[0].plan_hop(seeds_h, mask_h, kk, np.random.default_rng(rng_base + i))
+            loc_c, st_c = stores[1].plan_hop(seeds_h, mask_h, kk, np.random.default_rng(rng_base + i))
+            check(np.array_equal(loc_g, loc_c) and st_g.count == st_c.count and st_g.remote == st_c.remote,
+                  f"{name} hop {i}: the card's plan differs from the CPU's")
+            L = len(seeds_h)
+            hot_alias = stores[1].hot_graph.alias_prob is not None
+            if weighted and hot_alias:
+                hot_key = tuple(x.cpu() for x in alias_key_set(L, kk, False, kgen))
+            else:
+                hot_key = prng.random_keys(kgen, (L,))
+            stg_key = prng.random_keys(kgen, (st_c.count,))
+            on_card = (tuple(x.to(cuda) for x in hot_key) if isinstance(hot_key, tuple) else hot_key.to(cuda),
+                       stg_key.to(cuda))
+            reset_counts()
+            nb_g = sample_staged_hop(stores[0].hot_graph, torch.from_numpy(loc_g).to(cuda), st_g, kk, on_card)
+            torch.cuda.synchronize()
+            hop_launch = read_counts()
+            nb_c = sample_staged_hop(stores[1].hot_graph, torch.from_numpy(loc_c), st_c, kk, (hot_key, stg_key))
+            bad = ((nb_g.ids.cpu() != nb_c.ids) | (nb_g.mask.cpu() != nb_c.mask)).any(1).nonzero().flatten().tolist()
+            if weighted:
+                hot_ip = stores[1].hot_graph.indptr.numpy().astype(np.int64)
+                hot_pr = stores[1].hot_graph.probs.numpy() if stores[1].hot_graph.probs is not None else None
+                st_ip = st_c.graph.indptr.numpy().astype(np.int64)
+                st_pr = st_c.graph.probs.numpy()
+                staged_pos = {int(p): j for j, p in enumerate(st_c.row_of.tolist())}
+                for r in bad:
+                    if loc_c[r] != INVALID_ID:  # a hot row: K8
+                        ok = hot_alias and k8_tie(hot_ip, hot_pr, loc_c, hot_key[1], kk)(r)
+                    else:  # a staged row: K7
+                        j = staged_pos.get(r)
+                        ok = j is not None and k7_tie(st_ip, st_pr, np.arange(st_c.count), stg_key, kk)(j)
+                    check(ok, f"{name} hop {i}: row {r} differs between the card and the CPU")
+            else:
+                check(not bad, f"{name} hop {i}: rows {bad[:5]} differ between the card and the CPU")
+            hops.append({"hop": i, "seeds": L, "hot_rows": int((loc_c != INVALID_ID).sum()),
+                         "staged_rows": st_c.count, "hub_rows": int(st_c.is_pre.sum()), "remote_rows": st_c.remote,
+                         "staged_edges": st_c.graph.num_edges, "presample_ms": st_c.presample_s * 1e3,
+                         "near_tie_rows": len(bad), "launches": {k: v for k, v in hop_launch.items() if v}})
+            rl = unique_and_relabel(torch.from_numpy(seeds_h), nb_c.ids, nb_c.mask)
+            seeds_h, mask_h = rl.frontier.numpy(), rl.frontier_mask.numpy()
+        return hops
+
+    s_args = dict(miss_budget=tier_s.struct_miss_budget, deg_cap=tier_s.deg_cap)
+    dgs = DistHostCSCStore(hg, mesh, s_plan, **s_args)
+    full_hops = staged_hops((dgs, DistHostCSCStore(hg, cpu_mesh1, s_plan, **s_args)), False, 320,
+                            torch.Generator().manual_seed(321), "dist_host_full")
+    fh_ms, fht_ms, (fh_mets, fh_launch, fh_coll) = dist_host_turns(
+        DistHostTrainer(model=fresh_sage(75), fan_out=FAN_OUT, store=dh_store, gstore=dgs, dedup_last=False),
+        HostTierTrainer(model=fresh_sage(75), fan_out=FAN_OUT, store=ht_store,
+                        gstore=HostCSCStore(hg, s_hot, device=cuda, **s_args), dedup_last=False, device=cuda),
+        None, host_batches, N_TIMED)
+    k6_full = fh_launch["sample_uniform"] / N_TIMED
+    check(len(FAN_OUT) <= k6_full <= 2 * len(FAN_OUT) and fh_launch["gather_rows"] == N_TIMED,
+          f"dist_host_full launches {fh_launch}")
+    check(fh_coll["all_to_all"] == 0 and fh_coll["host_syncs"] == 0, f"dist_host_full collectives {fh_coll}")
+    fh_res = dist_host_measures(fh_mets, fh_launch, fh_coll, N_TIMED)
+    full_s = time.perf_counter() - t_full
+    # the weighted graph: K8 on the hot rows (the 5% of nodes of highest
+    # degree, as host_tier_biased takes), K7 on the staged rows
+    t_w = time.perf_counter()
+    wplan = top_deg[None]
+    wdgs = DistHostCSCStore(hg_w, mesh, wplan, **s_args)
+    w_hops = staged_hops((wdgs, DistHostCSCStore(hg_w, cpu_mesh1, wplan, **s_args)), True, 330,
+                         torch.Generator().manual_seed(331), "dist_host_full weighted")
+    w_tr = DistHostTrainer(model=fresh_sage(76), fan_out=FAN_OUT, store=dh_store, gstore=wdgs, dedup_last=False)
+    w_tr.train_batches(None, labels_np, host_batches[:N_WARM], 0)
+    n_w = 4
+    torch.cuda.synchronize()
+    reset_counts()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    w_mets = w_tr.train_batches(None, labels_np, host_batches[N_WARM:N_WARM + n_w], 1)
+    torch.cuda.synchronize()
+    w_ms = (time.perf_counter() - t0) / n_w * 1e3
+    w_launch = read_counts()
+    check(w_launch["sample_biased"] > 0 and w_launch["sample_biased_alias"] > 0 and w_launch["sample_uniform"] == 0,
+          f"dist_host_full weighted launches {w_launch}")
+    w_res = dist_host_measures(w_mets, w_launch, dict(mesh.counts), n_w)
+    k7["dist_host_launches_per_batch"] = w_launch["sample_biased"] / n_w
+    k8["dist_host_launches_per_batch"] = w_launch["sample_biased_alias"] / n_w
+    emit({"phase": "dist_host_full", "world": 1, "backend": mesh.backend, "tier": dataclasses.asdict(tier_s),
+          "tune_dist_tier_s": tune_s_s, "hot_structure_nodes": len(s_hot), "hot_feature_rows": len(f_hot),
+          "hops_card_equals_cpu": full_hops, "batches": N_TIMED, "ms_per_batch_rounds": fh_ms,
+          "ms_per_batch": float(np.median(fh_ms)), "host_tier_trainer_ms_per_batch_rounds": fht_ms,
+          "host_tier_trainer_ms_per_batch": float(np.median(fht_ms)), "k6_per_batch": k6_full, **fh_res,
+          "seconds": full_s,
+          "weighted": {"hot_structure_nodes": len(top_deg), "hops_card_equals_cpu": w_hops, "batches": n_w,
+                       "ms_per_batch": w_ms, **w_res, "seconds": time.perf_counter() - t_w}, **card})
+    del dgs, wdgs, w_tr, dh_store, ht_store
+    dist.destroy_process_group()
+
+    # dist_host_world2_gloo: two spawned ranks on the one card over gloo
+    t0 = time.perf_counter()
+    w2h = launch(dist_host_world2, 2, args=(hg.num_nodes,), backend="gloo", device="cuda", timeout_s=600)
+    w2h_s = time.perf_counter() - t0
+    check([r["rank"] for r in w2h] == [0, 1] and all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in w2h),
+          f"dist_host_world2_gloo: ranks {[(r['rank'], r['backend'], r['device']) for r in w2h]}")
+    check(all(w2h[0]["plans"][p]["losses"] == w2h[1]["plans"][p]["losses"] for p in ("selfless", "selfish")),
+          "dist_host_world2_gloo: the ranks disagree on the summed loss")
+    emit({"phase": "dist_host_world2_gloo", "world": 2, "backend": "gloo", "device": "cuda:0", "seconds": w2h_s,
+          "calibrate_ici_note": "gloo on one card moves CUDA tensors through the host: not an NVLink figure",
+          "ranks": w2h, "dist_host_phases_s": time.perf_counter() - t_dh, **card})
+
     # ---- 15. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "dist_launches_per_step")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "dist_launches_per_step",
+            "dist_host_launches_per_batch")
     # the profiler's record check saw launches (else it could not work)
     check(profile_device.launches_seen > 0, "the profiler recorded no kernel launch calls")
     emit({"phase": "profiler", "sessions": profile_device.sessions,

@@ -7,14 +7,15 @@ caching a row by ``bytes_slow / BW_slow - bytes_fast / BW_fast``
 
 * hbm  — a gather from the card's own memory (the cached fast path);
 * peer — a read from another card's memory (the partitioned "selfless"
-  tier); it stays a parameter until the port runs on several cards;
+  tier), kept under its JAX name ``bandwidth_ici``; :func:`calibrate_ici`
+  measures it as an all-to-all over the process group (over NCCL between
+  cards; a gloo group, on one card, measures the host path instead);
 * host — the miss path: a host-memory row gather plus the host → device
   copy.
 
 The defaults are placeholders, not measurements of any device:
 :func:`calibrate` measures the hbm figure on the card (K1 on random rows)
-and :func:`calibrate_host_staging` the host figure.  The peer figure is
-kept under its JAX name, ``bandwidth_ici``.
+and :func:`calibrate_host_staging` the host figure.
 """
 
 from __future__ import annotations
@@ -162,3 +163,28 @@ def calibrate(feature_dim: int = 128, rows: int = 1 << 17, device: DeviceLike = 
     ms = cuda_time_ms(lambda: gather_rows(table, idx))
     cm.bandwidth_hbm = rows * feature_dim * 4 * 2 / (ms / 1e3)
     return cm
+
+
+def calibrate_ici(mesh=None, mbytes: int = 8) -> float:
+    """Bytes per second per link of a tiled all-to-all over the mesh
+    (``dist_gnn_tpu/cache/cost_model.py:89-119``): the ranks together hold
+    ``mbytes`` MiB of f32 rows, each rank's block is split into one chunk
+    per rank and exchanged (``Mesh.all_to_all``), and the chain of
+    exchanges is timed by the slope method (``utils/timing.measure_chain``,
+    3 and 12 deep).  The bytes that cross a link are the ``(n - 1) / n``
+    of the total that leave their rank.  A world of one returns
+    ``CostModel.bandwidth_ici``.  ``mesh`` defaults to ``make_mesh()``;
+    every rank calls it (it runs collectives)."""
+    from dist_gnn_tpu_torch.parallel.mesh import make_mesh
+    from dist_gnn_tpu_torch.utils.timing import measure_chain
+
+    mesh = mesh or make_mesh()
+    n = mesh.size
+    if n < 2:
+        return CostModel.bandwidth_ici
+    rows = mbytes * (1 << 20) // 512 // n * n  # JAX's global row count
+    chunk = max(rows // n // n, 1)  # this rank's rows bound for each rank
+    x = torch.zeros((n, chunk, 128), dtype=torch.float32, device=mesh.device)
+    dt = measure_chain(lambda blk: mesh.all_to_all(blk) + 1.0, x, n_lo=3, n_hi=12)
+    total_bytes = n * n * chunk * 128 * 4
+    return total_bytes * (n - 1) / n / dt

@@ -28,8 +28,10 @@ served from the card or from the host.
 The staged rows and the staged adjacency are compact: exactly the miss
 rows, where the JAX package pads both to static shapes (a slab grown in
 powers of two past ``miss_budget`` with pad slot L, a dense [M, deg_cap]
-window).  The counters mean the same and the assembled features, ids
-and mask are the same.
+window).  The pinned slab grows in those powers of two (``width``), so a
+batch a little larger than the last reuses it; only its first ``count``
+rows are gathered and copied.  The counters mean the same and the
+assembled features, ids and mask are the same.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class StagedRows(NamedTuple):
     # CUDA events around the host → device copy on the copy stream (None
     # on the CPU, where the rows are in place when stage returns)
     copy: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]]
+    width: int = 0  # rows of the pinned slab: miss_budget grown in powers of two past count
 
     def wait(self) -> None:
         """Make the current stream wait until the rows have arrived."""
@@ -87,6 +90,17 @@ def copy_ms(copy: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]]) -> Option
         return None
     copy[1].synchronize()
     return copy[0].elapsed_time(copy[1])
+
+
+def slab_width(miss_budget: int, count: int, num_slots: int) -> int:
+    """The staged slab's rows: ``miss_budget`` (at least 1) doubled until it
+    holds ``count``, at most ``num_slots`` (the frontier's length, which
+    holds every miss): the JAX package's lossless growth
+    (``dist_gnn_tpu/parallel/host_dist.py:185-188``)."""
+    w = max(int(miss_budget), 1)
+    while w < count:
+        w *= 2
+    return min(w, num_slots) if num_slots else w
 
 
 def _sorted_ids(cache_nids) -> np.ndarray:
@@ -153,22 +167,28 @@ class HostFeatureStore:
         rows from the host base into a pinned slab and start the copy to
         the device.  Returns at once; call while the device computes the
         previous batch."""
+        return self._stage(self.sorted_np, frontier_np, fmask_np)
+
+    def _stage(self, table: np.ndarray, frontier_np: np.ndarray, fmask_np: np.ndarray) -> StagedRows:
+        """Stage the masked frontier slots whose ids ``table`` (sorted) does
+        not hold."""
         t0 = time.perf_counter()
-        member, _ = np_in_sorted(self.sorted_np, frontier_np)
+        member, _ = np_in_sorted(table, frontier_np)
         miss_idx = np.flatnonzero(fmask_np & ~member)
         probe_s = time.perf_counter() - t0
         m = len(miss_idx)
         overflow = max(0, m - self.miss_budget)
+        width = slab_width(self.miss_budget, m, len(frontier_np))
         i = self._ring.acquire()
-        rows_h = self._ring.buffer(i, "rows", (m, self.feature_dim), self._dtype)
-        slots_h = self._ring.buffer(i, "slots", (m,), torch.int64)
+        rows_h = self._ring.buffer(i, "rows", (width, self.feature_dim), self._dtype)[:m]
+        slots_h = self._ring.buffer(i, "slots", (width,), torch.int64)[:m]
         t0 = time.perf_counter()
         if m:
             native.gather_rows(self.base, frontier_np[miss_idx], out=rows_h.numpy())
         gather_s = time.perf_counter() - t0
         slots_h.copy_(torch.from_numpy(miss_idx))
         if self._copy_stream is None:
-            return StagedRows(rows_h.clone(), slots_h.clone(), m, overflow, probe_s, gather_s, None)
+            return StagedRows(rows_h.clone(), slots_h.clone(), m, overflow, probe_s, gather_s, None, width)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._copy_stream):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -179,7 +199,7 @@ class HostFeatureStore:
         self._ring.release(i, self._copy_stream)
         rows.record_stream(compute)
         slots.record_stream(compute)
-        return StagedRows(rows, slots, m, overflow, probe_s, gather_s, (start, end))
+        return StagedRows(rows, slots, m, overflow, probe_s, gather_s, (start, end), width)
 
 
 def assemble_features(
@@ -214,8 +234,11 @@ class StagedAdjacency(NamedTuple):
     pre_mask: torch.Tensor  # [m, k] bool
     is_pre: torch.Tensor  # [m] bool — True: take pre_ids
     count: int  # staged rows
-    overflow: int  # misses beyond miss_budget (dropped: their rows sample nothing)
+    # misses beyond miss_budget: dropped (their rows sample nothing) by
+    # HostCSCStore; staged all the same by DistHostCSCStore, which re-plans
+    overflow: int
     presample_s: float = 0.0  # host seconds of the hub rows' presampling
+    remote: int = 0  # staged rows of another rank's node range (DistHostCSCStore)
 
 
 def _csc_graph(indptr: np.ndarray, indices: np.ndarray, device: torch.device, probs=None,
@@ -326,12 +349,19 @@ class HostCSCStore:
         """Host side: probe the hot tier and stage the miss rows' adjacency.
         Returns ``(local_rows_np [L], StagedAdjacency)``; ``rng`` draws the
         hub rows' picks."""
-        local_rows, a, m, overflow = plan_hop_arrays(
-            self.indptr64, self.hg.indices, self.sorted_np, self.miss_budget, self.deg_cap,
+        local_rows, a, m, overflow = self._plan(seeds_np, mask_np, k, rng, self.miss_budget)
+        return local_rows, self._staged(a, m, overflow)
+
+    def _plan(self, seeds_np, mask_np, k: int, rng, budget: int):
+        return plan_hop_arrays(
+            self.indptr64, self.hg.indices, self.sorted_np, budget, self.deg_cap,
             seeds_np, mask_np, k, rng, probs=self.hg.probs,
         )
+
+    def _staged(self, a: dict, m: int, overflow: int, remote: int = 0) -> StagedAdjacency:
+        """:func:`plan_hop_arrays`' numpy arrays on the device."""
         dev = self.device
-        return local_rows, StagedAdjacency(
+        return StagedAdjacency(
             graph=_csc_graph(a["indptr"], a["indices"], dev, a["probs"]),
             row_of=torch.from_numpy(a["row_of"]).to(dev),
             pre_ids=torch.from_numpy(a["pre_ids"]).to(dev),
@@ -340,6 +370,7 @@ class HostCSCStore:
             count=m,
             overflow=overflow,
             presample_s=a["presample_s"],
+            remote=remote,
         )
 
 
@@ -363,11 +394,12 @@ def sample_staged_hop(
     are scattered to their seed positions.
 
     ``key`` is a ``torch.Generator`` that draws the hot rows' keys then the
-    staged rows' [m], or the pair (hot keys, staged keys) itself.  JAX's are
+    staged rows' [m], or the pair (hot keys, staged keys) itself, of which
+    the staged rows take the first m.  JAX's are
     ``prng.random_keys(key, (L,))`` on an unweighted graph, on a weighted
     one the alias sampler's (``ops/sampling.alias_keys``), and for the
     first m staged rows ``prng.random_keys(fold_in(key, 1), (M,))``."""
-    hot_key, staged_key = (key, key) if isinstance(key, torch.Generator) else key
+    hot_key, staged_key = (key, key) if isinstance(key, torch.Generator) else (key[0], key[1][: staged.count])
     nb = sample_neighbors(hot_graph, local_rows, k, False, hot_key)  # K6 or K8
     seeds_m = torch.arange(staged.count, dtype=torch.int32, device=local_rows.device)
     staged_sampler = sample_uniform if staged.graph.probs is None else sample_biased  # K6 or K7

@@ -45,6 +45,18 @@ from dist_gnn_tpu_torch.training.trainer import dist_masked_nll_loss, make_optim
 OVERFLOW_KEYS = ("overflow", "sampler_overflow", "frontier_overflow")
 
 
+def sum_gradients(model, mesh) -> None:
+    """One all-reduce (sum) of every gradient of ``model``, packed in a
+    flat buffer; a parameter without a gradient contributes zeros."""
+    params = list(model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    off = 0
+    for p in params:
+        p.grad = flat[off : off + p.numel()].view_as(p)
+        off += p.numel()
+
+
 @dataclasses.dataclass(eq=False)
 class DistTrainer:
     model: Any  # the nn.Module that Trainer takes, on this rank's device
@@ -110,16 +122,6 @@ class DistTrainer:
         lab, _ = self.store_labels_fetch(labels, seeds, seed_mask)
         return blocks, stats, self.store.dequantize(feats), lab[:, 0].to(torch.int32), overflow
 
-    def _sum_gradients(self) -> None:
-        """One all-reduce (sum) of every gradient, packed in a flat buffer."""
-        params = list(self.model.parameters())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        flat = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-        off = 0
-        for p in params:
-            p.grad = flat[off : off + p.numel()].view_as(p)
-            off += p.numel()
-
     def train_step(
         self,
         graph,  # a Graph on this rank's device, or None with ``sgraph``
@@ -141,7 +143,7 @@ class DistTrainer:
         )
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        self._sum_gradients()
+        sum_gradients(self.model, self.mesh)
         self.optimizer.step()
         tot = self.mesh.all_reduce(torch.stack([
             loss.detach().double(), acc_sum.double(), overflow.double(),

@@ -51,10 +51,11 @@ from dist_gnn_tpu_torch.training.trainer import make_optimizer, masked_nll_loss
 from dist_gnn_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
-def batch_keys(seed: int, i: int, device: torch.device) -> Tuple[torch.Generator, torch.Generator]:
+def batch_keys(seed: int, i: int, device: torch.device, rank: int = 0) -> Tuple[torch.Generator, torch.Generator]:
     """Batch ``i``'s (sampler, dropout) generators on ``device``, seeded
-    from ``(seed, i)`` alone."""
-    s = np.random.SeedSequence([seed, i]).generate_state(2, np.uint64)
+    from ``(seed, i)`` alone, or from ``(seed, i, rank)`` for a rank above 0
+    of a distributed run (rank 0 draws what a single device draws)."""
+    s = np.random.SeedSequence([seed, i, rank] if rank else [seed, i]).generate_state(2, np.uint64)
     return tuple(torch.Generator(device=device).manual_seed(int(v)) for v in s)
 
 
@@ -109,7 +110,8 @@ class HostTierTrainer:
         (hot keys, staged keys) pair per hop.  Returns (blocks, host stats,
         the last frontier and its mask as numpy)."""
         blocks = []
-        stats = {"struct_miss": 0, "struct_overflow": 0, "struct_plan_ms": 0.0, "struct_presample_ms": 0.0}
+        stats = {"struct_miss": 0, "struct_overflow": 0, "struct_remote": 0, "struct_plan_ms": 0.0,
+                 "struct_presample_ms": 0.0}
         seeds_h, mask_h = np.asarray(seeds_np), np.asarray(mask_np)
         dev = self.device
         n_hops = len(self.fan_out)
@@ -120,6 +122,7 @@ class HostTierTrainer:
             stats["struct_presample_ms"] += staged.presample_s * 1e3
             stats["struct_miss"] += staged.count
             stats["struct_overflow"] += staged.overflow
+            stats["struct_remote"] += staged.remote
             last = i == n_hops - 1
             hop_key = key if isinstance(key, torch.Generator) else key[i]
             blk = self._hop(
@@ -189,9 +192,10 @@ class HostTierTrainer:
         (host), ``stage_h2d_ms`` (the copy stream's span on the card; None
         on the CPU), plus the sampler's
         ``sampler_overflow``/``frontier_overflow`` or, with host
-        structure, ``struct_miss``/``struct_overflow`` and
-        ``struct_plan_ms`` (host time of the hops' planning) with
-        ``struct_presample_ms`` (the part spent presampling hub rows).  A batch's
+        structure, ``struct_miss``/``struct_overflow``/``struct_remote``
+        (0 on one device) and ``struct_plan_ms`` (host time of the hops'
+        planning) with ``struct_presample_ms`` (the part spent presampling
+        hub rows).  A batch's
         staged rows are released once its compute is queued; only its copy
         events are kept until the end, for ``stage_h2d_ms``."""
         rng = np.random.default_rng(seed)

@@ -36,6 +36,7 @@ def test_walk_covers_the_package():
                    "host_tier.py", "training/pipeline.py", "cache/autotune.py", "utils/metrics.py",
                    "training/checkpoint.py", "ops/sampling.py", "graph.py", "ops/quantize.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/feature_store.py",
-                   "parallel/graph_dist.py", "parallel/trainer_dist.py", "parallel/inference_dist.py"):
+                   "parallel/graph_dist.py", "parallel/trainer_dist.py", "parallel/inference_dist.py",
+                   "parallel/host_dist.py", "parallel/host_struct.py"):
         assert f"dist_gnn_tpu_torch/{module}" in names
     assert len(names) >= 20

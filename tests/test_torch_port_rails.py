@@ -59,11 +59,19 @@ def test_tune_sampler_caps_equal_jax(graph, batch, fan_out, seed, cap_slack):
 
 @pytest.mark.parametrize("batch,fan_out,trials,seed", [(50, (4, 3), 3, 7), (40, (6, 4, 2), 2, 1)])
 def test_simulate_hops_equals_jax(graph, batch, fan_out, trials, seed):
-    """The frontier sizes seen per hop equal the JAX function's first
-    output (the port returns only those)."""
+    """The frontier sizes seen per hop and the per-trial trails (every
+    hop's seeds, the last hop's frontier slots) equal the JAX function's
+    first and third outputs (the port does not return its second)."""
     args = (graph["indptr"], graph["indices"], graph["train_idx"], batch, fan_out, trials, seed)
-    jc, _, _ = jautotune._simulate_hops(*args)
-    assert tautotune._simulate_hops(*args) == jc
+    jc, _, jt = jautotune._simulate_hops(*args)
+    caps, trails = tautotune._simulate_hops(*args)
+    assert caps == jc
+    assert len(trails) == len(jt) == trials
+    for (seeds, front), (jseeds, jfront) in zip(trails, jt):
+        assert len(seeds) == len(jseeds) == len(fan_out)
+        for s, js in zip(seeds, jseeds):
+            np.testing.assert_array_equal(s, js)
+        np.testing.assert_array_equal(front, jfront)
     assert tautotune._round_up(1025, 512) == jautotune._round_up(1025, 512) == 1536
 
 
