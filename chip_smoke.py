@@ -178,12 +178,32 @@ weights from a seed.  Phases, one JSON line each:
     with ``peer_dropped`` 0, equal params after 3 batches,
     ``calibrate_ici`` over gloo, through the host).
 
+18. the two-tier ``('host', 'data')`` mesh (``parallel/mesh.make_mesh(
+    hosts=H)``, ``feature_store.exchange_gather_hier``): two_tier_world1
+    (the mesh (1, 1) on NCCL, its sub-meshes on the world's group: the
+    hierarchical exchange equals a K1 gather lossless, in one lossy round
+    and with a third of the budget (the rest dropped and counted); the
+    hierarchical store with the plan's hot and peer-hot tiers equals the
+    flat store; K1 at the response's flag-column widths, 101 bf16 and 105
+    packed bytes, beside 100 and 104; 3 f32 ``DistTrainer`` steps on the
+    tuple axis against the flat axis, same params and keys: loss 1e-5,
+    params 1e-3; the collectives per axis); two_tier_world4_gloo (four
+    spawned ranks on the card over gloo as (2, 2), ``two_tier_world4``
+    (a)-(g): the skewed exchange in 16 rounds, hierarchical == flat,
+    peer-hot inside a host, the gradient protocol, 4 ``DistTrainer`` steps
+    at the SAGE bench config with the selfless 20% plan over four ranks,
+    one ``DistHostTrainer`` batch with host features and structure,
+    ``calibrate_ici`` per axis); dryrun_multichip (``entry.dryrun_multichip(4,
+    backend="gloo")``: the flagship composition on (2, 2), every loss
+    finite).
+
 Then the profiler's count of sessions that lost kernel records
 (``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
 K1, K2, K3, K3-bwd, K4, K5, the slot transpose, K7, K8, each with its
 device ms, its launches per distributed step and per ``DistHostTrainer``
 batch at world 1: K7 and K8 from the weighted host-structure run, the
-others from dist_host_features), the card's name and
+others from dist_host_features; and per two-tier ``DistTrainer`` step,
+from rank 0 of two_tier_world4_gloo (e)), the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises, and
 the script exits non-zero without the last line.  It needs no network
@@ -361,6 +381,19 @@ def gat_edge_checks(gat_ops, gen) -> list:
     return rows
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper by name; each adds one to its ``launches`` where
+    it launches its kernel, and nowhere else."""
+    from dist_gnn_tpu_torch.ops import gat as gat_ops
+    from dist_gnn_tpu_torch.ops import gather, sampling
+
+    return {"sample_uniform": sampling.sample_uniform, "sample_biased": sampling.sample_biased,
+            "sample_biased_alias": sampling.sample_biased_alias,
+            "gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
+            "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose,
+            "gather_mean_bwd": gather.gather_mean_bwd, "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
+
+
 def world2_gloo(mesh, caps, num_nodes) -> dict:
     """One rank of the world-2 phase (``launch`` spawns two on the card, over
     gloo): each builds the bench graph (``num_nodes`` 500,000) from its
@@ -482,8 +515,9 @@ def world2_gloo(mesh, caps, num_nodes) -> dict:
                                 generator=torch.Generator().manual_seed(60), device=cuda),
                      fan_out=FAN_OUT, store=store_bf, sgraph=sg, dedup_last=False, frontier_caps=caps)
     labs = store_bf.shard_of(labels[:, None])
-    batches = list(SeedGenerator(arrays["train_idx"], n * BATCH, shuffle=True, drop_last=True, device=cuda)
-                   .epoch(torch.Generator(device=cuda).manual_seed(80)))[:4]
+    brng = np.random.default_rng(80)
+    batches = [(torch.from_numpy(brng.choice(arrays["train_idx"], n * BATCH, replace=False).astype(np.int32)).to(cuda),
+                torch.ones(n * BATCH, dtype=torch.bool, device=cuda)) for _ in range(4)]
     gen = torch.Generator(device=cuda).manual_seed(70 + me)
     tr.train_step(None, labs, *batches[0], gen)  # warm-up
     sync()
@@ -603,6 +637,273 @@ def dist_host_world2(mesh, num_nodes) -> dict:
     return out
 
 
+def two_tier_world4(mesh, caps, num_nodes, f_plan, s_plan, tier) -> dict:
+    """One rank of the two_tier_world4_gloo phase (``launch`` spawns four on
+    the card over gloo, as the two-tier mesh (2, 2)): each builds the bench
+    graph (``num_nodes`` 500,000) from its seed and checks (a) an exchange
+    whose every id lies in shard 0, host budget 256 for 4,096 ids a rank:
+    lossless, exact, in the 16 rounds the skew implies, two all_to_alls a
+    stage a round; (b) the same random ids give the same rows through the
+    hierarchical and the flat exchange; (c) a per-rank selfless hot tier
+    whose base shards lie about the hot rows: rows hot on a rank of this
+    host come back true, rows hot only on the other host as the base's
+    lie, cold rows true; (d) the gradient protocol of ``world2_gloo`` (c)
+    with the features through the hierarchical store; (e) 4
+    ``DistTrainer`` steps at the SAGE bench config (bf16 store, 512 seeds a
+    rank) on the ``ShardedGraph`` and the hierarchical store with the
+    selfless 20% plan's hot sets (``f_plan``, ``s_plan``) and peer-hot
+    rows, 3 timed, with the collectives per axis and the kernel launches
+    per step, then 3 steps at a time in turns with the same step through
+    the flat exchange on the same axis; (f) one ``DistHostTrainer`` batch
+    with host features and
+    structure (``tier``'s budgets): rows hot only on the other host are
+    staged, ``peer_dropped`` 0, ``struct_remote`` reported, the ranks'
+    params equal; (g) ``calibrate_ici`` over the host and the data axes.
+    Returns its measures."""
+    import numpy as np
+    import torch
+
+    from dist_gnn_tpu_torch.cache.cost_model import calibrate_ici
+    from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
+    from dist_gnn_tpu_torch.graph import INVALID_ID, HostGraph
+    from dist_gnn_tpu_torch.models.sage import SAGE
+    from dist_gnn_tpu_torch.parallel import feature_store as dfs
+    from dist_gnn_tpu_torch.parallel.graph_dist import ShardedGraph
+    from dist_gnn_tpu_torch.parallel.host_dist import DistHostFeatureStore, DistHostTrainer
+    from dist_gnn_tpu_torch.parallel.host_struct import DistHostCSCStore
+    from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
+    from dist_gnn_tpu_torch.sampler import sample_blocks
+    from dist_gnn_tpu_torch.training import dist_masked_nll_loss
+    from dist_gnn_tpu_torch.training.pipeline import batch_keys
+
+    ax = ("host", "data")
+    cuda, n, me = mesh.device, mesh.size, mesh.rank
+    H, D = mesh.shape
+    on_card = cuda.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    counters = kernel_counters()
+    out = {"rank": me, "backend": mesh.backend, "device": str(cuda), "shape": [H, D]}
+    t_rank = time.perf_counter()
+    arrays, meta = make_synthetic_dataset(
+        num_nodes=num_nodes, avg_degree=30, feature_dim=100, num_classes=47, train_frac=0.2, seed=0,
+    )
+    hg = HostGraph(indptr=arrays["indptr"], indices=arrays["indices"])
+    feats = arrays["features"]
+    N = hg.num_nodes
+    out["data_s"] = time.perf_counter() - t_rank
+    # (a) adversarial skew: every id in shard 0, a host budget far below the load
+    store = dfs.ShardedFeatureStore(feats, mesh, axis_name=ax, hierarchical=True)
+    S = store.shard_size
+    L, bh = 4096, 256
+    ids_np = np.random.default_rng(10 + me).integers(0, S, L).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    ones = torch.ones(L, dtype=torch.bool, device=cuda)
+    sync()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    rows, uns = dfs.exchange_gather_hier(store.features, ids, ones, mesh, S, budget_host=bh)
+    sync()
+    skew_ms = (time.perf_counter() - t0) * 1e3
+    c = mesh.all_counts()
+    rounds = c["world"]["host_syncs"]
+    check(np.array_equal(rows.cpu().numpy(), feats[ids_np]) and int(uns) == 0,
+          f"two-tier rank {me}: the skewed hierarchical exchange lost or changed rows")
+    check(rounds == -(-L // bh), f"two-tier rank {me}: {rounds} rounds, expected {-(-L // bh)}")
+    check(c["host"]["all_to_all"] == c["data"]["all_to_all"] == 2 * rounds and c["world"]["all_to_all"] == 0,
+          f"two-tier rank {me}: collectives {c}")
+    out["skew"] = {"ids": L, "budget_host": bh, "budget_data": H * bh, "rounds": rounds, "collectives": c,
+                   "ms": skew_ms}
+    # (b) hierarchical == flat on the same random ids
+    q_np = np.random.default_rng(20 + me).integers(0, N, L).astype(np.int32)
+    q = torch.from_numpy(q_np).to(cuda)
+    mesh.reset_counts()
+    rh, uh = store.fetch_local(q, ones)
+    c_h = mesh.all_counts()
+    rf, uf = dfs.exchange_gather(store.features, q, ones, mesh, S)
+    check(torch.equal(rh, rf) and np.array_equal(rh.cpu().numpy(), feats[q_np]) and int(uh) == int(uf) == 0,
+          f"two-tier rank {me}: the hierarchical and the flat exchange differ")
+    times = {}
+    for name, fn in (("hier", lambda: store.fetch_local(q, ones)),
+                     ("flat", lambda: dfs.exchange_gather(store.features, q, ones, mesh, S))) * 2:
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        sync()
+        times.setdefault(name, []).append((time.perf_counter() - t0) / 3 * 1e3)
+    out["hier_vs_flat"] = {"ids": L, "rows_equal": True, "collectives_hier": c_h, "ms_in_turns": times}
+    # (c) peer-hot inside a host: per-rank disjoint hot sets, the base lies about them
+    C = min(20_000, N // (2 * n))
+    hot = np.random.default_rng(30).permutation(N)[: n * C].reshape(n, C).astype(np.int32)
+    lie = feats.copy()
+    lie[hot.reshape(-1)] = -777.0
+    peer = (me // D) * D + (me + 1) % D  # the other rank of this host
+    far = (me + D) % n  # a rank of the other host
+    cold = np.setdiff1d(np.arange(N, dtype=np.int32), hot.reshape(-1))
+    q2_np = np.concatenate([hot[peer][:1024], hot[far][:1024], hot[me][:256],
+                            np.random.default_rng(40 + me).choice(cold, 1024)]).astype(np.int32)
+    st = dfs.ShardedFeatureStore(feats, mesh, axis_name=ax, hierarchical=True, hot_ids=hot, peer_hot=True)
+    st.features = st.shard_of(lie)
+    q2 = torch.from_numpy(q2_np).to(cuda)
+    m2 = torch.ones(len(q2_np), dtype=torch.bool, device=cuda)
+    mesh.reset_counts()
+    r2, u2 = st.fetch_local(q2, m2, budget=st.request_budget_for(len(q2_np)))
+    c2 = mesh.all_counts()
+    r2 = r2.cpu().numpy()
+    host_hot = np.isin(q2_np, hot[(me // D) * D:(me // D + 1) * D].reshape(-1))
+    far_only = np.isin(q2_np, hot.reshape(-1)) & ~host_hot
+    check(int(u2) == 0 and np.array_equal(r2[host_hot], feats[q2_np[host_hot]]),
+          f"two-tier rank {me}: rows hot on this host are not the true rows")
+    check(far_only.sum() == 1024 and bool((r2[far_only] == -777.0).all()),
+          f"two-tier rank {me}: rows hot only on the other host should come from the base")
+    check(np.array_equal(r2[~np.isin(q2_np, hot.reshape(-1))], feats[q2_np[~np.isin(q2_np, hot.reshape(-1))]]),
+          f"two-tier rank {me}: cold rows are not the true rows")
+    check(c2["data"]["host_syncs"] >= 1 and c2["host"]["host_syncs"] == 0,
+          f"two-tier rank {me}: the peer-hot rounds left the host: {c2}")
+    out["peer_hot"] = {"ids": len(q2_np), "hot_on_a_host_peer": 1024, "hot_only_on_the_other_host": 1024,
+                       "collectives": c2}
+    del lie, st
+    # (d) the gradient protocol on fixed blocks, features through the hierarchical store
+    graph = hg.to_device(cuda)
+    seeds = np.random.default_rng(40).choice(arrays["train_idx"], n * BATCH, replace=False).astype(np.int32)
+    blocks = [sample_blocks(graph, torch.from_numpy(seeds[k * BATCH:(k + 1) * BATCH]).to(cuda),
+                            torch.ones(BATCH, dtype=torch.bool, device=cuda), FAN_OUT, False,
+                            torch.Generator(device=cuda).manual_seed(100 + k), dedup_last=False)[0]
+              for k in range(n)]
+    labels = torch.from_numpy(arrays["labels"]).to(cuda)
+    model = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), dropout=0.0,
+                 generator=torch.Generator().manual_seed(41), device=cuda)
+    ref = SAGE(100, 256, meta["num_classes"], len(FAN_OUT), dropout=0.0,
+               generator=torch.Generator().manual_seed(41), device=cuda)
+    mine = blocks[me]
+    fr = mine[-1].frontier
+    rows, _ = store.fetch_local(fr, mine[-1].frontier_mask, budget=store.request_budget_for(fr.shape[0]))
+    lab = labels[torch.from_numpy(seeds[me * BATCH:(me + 1) * BATCH]).to(cuda).long()]
+    loss, _ = dist_masked_nll_loss(model, False, mesh, mine, rows, lab, mine[0].seed_mask, None)
+    loss.backward()
+    grads = mesh.all_reduce(torch.cat([p.grad.reshape(-1) for p in model.parameters()]))
+    loss_dist = float(mesh.all_reduce(loss.detach().reshape(1))[0])
+    feats_dev = torch.from_numpy(feats).to(cuda)
+    total = 0.0
+    for k, blk in enumerate(blocks):
+        safe = torch.where(blk[-1].frontier_mask, blk[-1].frontier, 0).long()
+        logits = ref(tuple(reversed(blk)), feats_dev[safe], contiguous_first=True)
+        lab_k = labels[torch.from_numpy(seeds[k * BATCH:(k + 1) * BATCH]).to(cuda).long()]
+        total = total - torch.log_softmax(logits.float(), -1).gather(1, lab_k[:, None].long()).sum()
+    total = total / (n * BATCH)
+    total.backward()
+    total = float(total.detach())
+    ref_grads = torch.cat([p.grad.reshape(-1) for p in ref.parameters()])
+    loss_err = abs(loss_dist - total) / max(1.0, abs(total))
+    off, grad_err = 0, {}
+    for name, p in ref.named_parameters():
+        grad_err[name] = share_err(grads[off:off + p.numel()], ref_grads[off:off + p.numel()])
+        off += p.numel()
+    check(loss_err <= LOSS_F32_TOL, f"two-tier rank {me}: dist loss {loss_dist} vs single-device {total}")
+    check(all(e <= GRAD_F32_TOL for e in grad_err.values()), f"two-tier rank {me}: gradients {grad_err}")
+    out["grad"] = {"loss_dist": loss_dist, "loss_single_device": total, "loss_err": loss_err,
+                   "grad_share_err": grad_err}
+    del graph, feats_dev, blocks, model, ref, store
+    # (e) DistTrainer at the SAGE bench config on the tuple axis
+    sg = ShardedGraph.build(hg, mesh, axis_name=ax, hot_ids=s_plan)
+    store_bf = dfs.ShardedFeatureStore(torch.from_numpy(feats).to(torch.bfloat16), mesh, axis_name=ax,
+                                       hierarchical=True, hot_ids=f_plan, peer_hot=True)
+    tr = DistTrainer(model=SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(60), device=cuda),
+                     fan_out=FAN_OUT, store=store_bf, sgraph=sg, dedup_last=False, frontier_caps=caps)
+    labs = store_bf.shard_of(labels[:, None])
+    brng = np.random.default_rng(80)
+    batches = [(torch.from_numpy(brng.choice(arrays["train_idx"], n * BATCH, replace=False).astype(np.int32)).to(cuda),
+                torch.ones(n * BATCH, dtype=torch.bool, device=cuda)) for _ in range(4)]
+    gen = torch.Generator(device=cuda).manual_seed(70 + me)
+    tr.train_step(None, labs, *batches[0], gen)  # warm-up
+    sync()
+    mesh.reset_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mets = [tr.train_step(None, labs, s, mk, gen) for s, mk in batches[1:]]
+    sync()
+    step_ms = (time.perf_counter() - t0) / len(mets) * 1e3
+    launches = {k: fn.launches / len(mets) for k, fn in counters.items()}
+    coll = {a: {k: v / len(mets) for k, v in cnt.items()} for a, cnt in mesh.all_counts().items()}
+    ovf = sum(int(m_["overflow"]) + int(m_["sampler_overflow"]) + int(m_["frontier_overflow"]) for m_ in mets)
+    check(ovf == 0 and all(np.isfinite(float(m_["loss"])) for m_ in mets), f"two-tier rank {me}: overflow {ovf}")
+    if on_card:  # the step ran through the path's kernels
+        ran = {k: launches[k] for k in ("sample_uniform", "gather_rows", "gather_mean", "slot_transpose",
+                                        "gather_mean_bwd")}
+        check(all(v > 0 for v in ran.values()), f"two-tier rank {me}: kernels not launched in the step: {ran}")
+    psum = torch.stack([p.detach().double().sum() for p in tr.model.parameters()]).sum().reshape(1)
+    sums = [float(x) for x in mesh.all_gather(psum)]
+    check(len(set(sums)) == 1, f"two-tier rank {me}: the ranks' params differ after training ({sums})")
+    # the same step with the flat exchange on the same axis (peer-hot over
+    # the world), timed in turns with the hierarchical one
+    store_fl = dfs.ShardedFeatureStore(torch.from_numpy(feats).to(torch.bfloat16), mesh, axis_name=ax,
+                                       hot_ids=f_plan, peer_hot=True)
+    tr_fl = DistTrainer(model=SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                                   generator=torch.Generator().manual_seed(60), device=cuda),
+                        fan_out=FAN_OUT, store=store_fl, sgraph=sg, dedup_last=False, frontier_caps=caps)
+    gen_fl = torch.Generator(device=cuda).manual_seed(70 + me)
+    tr_fl.train_step(None, labs, *batches[0], gen_fl)  # warm-up
+    turns = {"hier": [], "flat": []}
+    for name in ("flat", "hier", "hier", "flat"):
+        t_, g_ = (tr, gen) if name == "hier" else (tr_fl, gen_fl)
+        sync()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        for s_, mk_ in batches[1:]:
+            t_.train_step(None, labs, s_, mk_, g_)
+        sync()
+        turns[name].append((time.perf_counter() - t0) / (len(batches) - 1) * 1e3)
+        if name == "flat":
+            coll_fl = {a: {k: v / (len(batches) - 1) for k, v in cnt.items()} for a, cnt in mesh.all_counts().items()}
+    out["train"] = {"steps": len(mets), "ms_per_step": step_ms, "losses": [float(m_["loss"]) for m_ in mets],
+                    "collectives_per_step": coll, "launches_per_step": launches,
+                    "ms_per_step_in_turns": turns, "flat_exchange_collectives_per_step": coll_fl,
+                    "hot_feature_rows": int((store_bf.hot_sorted != INVALID_ID).sum()),
+                    "hot_structure_rows": int((sg.hot_sorted != INVALID_ID).sum())}
+    del sg, store_bf, tr, store_fl, tr_fl
+    # (f) one DistHostTrainer batch, host features and structure, on (2, 2)
+    feats32 = np.ascontiguousarray(feats, np.float32)
+    labels_np = np.asarray(arrays["labels"], np.int32)
+    hstore = DistHostFeatureStore(feats32, mesh, f_plan, miss_budget=tier["feat_miss_budget"], axis_name=ax)
+    gstore = DistHostCSCStore(hg, mesh, s_plan, miss_budget=tier["struct_miss_budget"], deg_cap=tier["deg_cap"],
+                              axis_name=ax)
+    htr = DistHostTrainer(model=SAGE(100, 256, meta["num_classes"], len(FAN_OUT), compute_dtype=torch.bfloat16,
+                                     generator=torch.Generator().manual_seed(92), device=cuda),
+                          fan_out=FAN_OUT, store=hstore, gstore=gstore, dedup_last=False)
+    hb = [(np.random.default_rng(90).choice(arrays["train_idx"], n * BATCH, replace=False).astype(np.int32),
+           np.ones(n * BATCH, bool))]
+    s_me, m_me = htr._my_slice(*hb[0])
+    _, _, fr_np, frm_np = htr.sample(None, s_me, m_me, batch_keys(95, 0, cuda, me)[0], np.random.default_rng(96))
+    staged = hstore.stage(fr_np, frm_np)
+    staged.wait()
+    host_rows = f_plan[(me // D) * D:(me // D + 1) * D]
+    in_host = np.isin(fr_np, host_rows[host_rows != INVALID_ID])
+    cross = frm_np & np.isin(fr_np, f_plan[f_plan != INVALID_ID]) & ~in_host
+    check(staged.count == int((frm_np & ~in_host).sum()) and int(cross.sum()) > 0,
+          f"two-tier rank {me}: staged {staged.count} rows, {int(cross.sum())} hot only on the other host")
+    mesh.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    hm = htr.train_batches(None, labels_np, hb, 93)
+    sync()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(int(hm[0]["peer_dropped"]) == 0 and np.isfinite(float(hm[0]["loss"])),
+          f"two-tier rank {me}: peer_dropped {int(hm[0]['peer_dropped'])}, loss {float(hm[0]['loss'])}")
+    psum = torch.stack([p.detach().double().sum() for p in htr.model.parameters()]).sum().reshape(1)
+    sums = [float(x) for x in mesh.all_gather(psum)]
+    check(len(set(sums)) == 1, f"two-tier rank {me}: the ranks' params differ after the host-tier batch ({sums})")
+    out["dist_host"] = {"ms_batch": host_ms, "loss": float(hm[0]["loss"]),
+                        **{k: hm[0][k] for k in ("feat_miss", "struct_miss", "struct_remote", "struct_overflow")},
+                        "cross_host_hot_rows_staged": int(cross.sum()), "frontier_staged_rows": staged.count,
+                        "collectives": mesh.all_counts()}
+    # (g) the all-to-all rate of each axis (gloo through the host: not NVLink)
+    out["calibrate_ici_Bps"] = {"host": calibrate_ici(mesh, "host"), "data": calibrate_ici(mesh, "data")}
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -639,7 +940,8 @@ def main() -> int:
     from dist_gnn_tpu_torch.parallel.host_dist import DistHostFeatureStore, DistHostTrainer
     from dist_gnn_tpu_torch.parallel.host_struct import DistHostCSCStore
     from dist_gnn_tpu_torch.parallel.inference_dist import dist_full_graph_inference
-    from dist_gnn_tpu_torch.parallel.mesh import Mesh, initialize_distributed, launch
+    from dist_gnn_tpu_torch.entry import dryrun_multichip
+    from dist_gnn_tpu_torch.parallel.mesh import Mesh, initialize_distributed, launch, make_mesh
     from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
     from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_sampler
@@ -657,11 +959,7 @@ def main() -> int:
         check(bool(hits), f"the profiler recorded no {kernel_name}: {sorted(k[:70] for k in kernels)[:12]}")
         return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
 
-    counters = {"sample_uniform": sampling.sample_uniform, "sample_biased": sampling.sample_biased,
-                "sample_biased_alias": sampling.sample_biased_alias,
-                "gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
-                "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose, "gather_mean_bwd": gather.gather_mean_bwd,
-                "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
+    counters = kernel_counters()
 
     def reset_counts():
         for fn in counters.values():
@@ -2971,10 +3269,127 @@ def main() -> int:
           "calibrate_ici_note": "gloo on one card moves CUDA tensors through the host: not an NVLink figure",
           "ranks": w2h, "dist_host_phases_s": time.perf_counter() - t_dh, **card})
 
+    # ---- 18. the two-tier ('host', 'data') mesh ---------------------------
+    # two_tier_world1: the mesh (1, 1) on NCCL; its sub-meshes span the world
+    # and reuse its group.  The hierarchical exchange and store against K1 and
+    # the flat store, DistTrainer on the tuple axis against the flat axis
+    ax2 = ("host", "data")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        rdv_port = sock.getsockname()[1]
+    t_tt = time.perf_counter()
+    mesh = initialize_distributed(f"tcp://localhost:{rdv_port}", 0, 1, hosts=1)
+    flat = make_mesh(cuda)  # the flat mesh of the same world
+    check(mesh.backend == "nccl" and mesh.shape == (1, 1) and mesh.axis("host").size == mesh.axis("data").size == 1,
+          f"two_tier_world1: {mesh.backend}, {mesh.shape}")
+    fr, frm = blocks[-1].frontier, blocks[-1].frontier_mask
+    Lf = fr.shape[0]
+    direct_x = torch.where(frm[:, None], gather.gather_rows(features, torch.where(frm, fr, 0)), 0)
+    store_h = dfs.ShardedFeatureStore(features, mesh, axis_name=ax2, hierarchical=True, hot_ids=f_plan, peer_hot=True)
+    store_f = dfs.ShardedFeatureStore(features, flat, hot_ids=f_plan, peer_hot=True)
+    tt_x = {}
+    for tag, kw in (("lossless", {}), ("one_round", {"budget_host": Lf, "lossless": False}),
+                    ("lossy_third", {"budget_host": Lf // 3, "lossless": False})):
+        mesh.reset_counts()
+        reset_counts()
+        rows_h, uns_h = dfs.exchange_gather_hier(store_h.features, fr, frm, mesh, store_h.shard_size, **kw)
+        torch.cuda.synchronize()
+        n_valid = int(frm.sum())
+        if tag == "lossy_third":  # the first L/3 valid ids pass stage 1, the rest are dropped and counted
+            first = torch.cumsum(frm.int(), 0) <= Lf // 3
+            check(torch.equal(rows_h, torch.where(first[:, None], direct_x, 0))
+                  and int(uns_h) == max(0, n_valid - Lf // 3),
+                  f"two_tier_world1 {tag}: rows or unserved {int(uns_h)}")
+        else:
+            check(torch.equal(rows_h, direct_x) and int(uns_h) == 0, f"two_tier_world1 {tag}: rows differ from K1")
+        tt_x[tag] = {"unserved": int(uns_h), "collectives": mesh.all_counts(), "launches": read_counts(),
+                     "ms": cuda_time_ms(lambda: dfs.exchange_gather_hier(store_h.features, fr, frm, mesh,
+                                                                         store_h.shard_size, **kw), iters=10)}
+    mesh.reset_counts()
+    flat.reset_counts()
+    rh_s, uh_s = store_h.fetch_local(fr, frm)
+    rf_s, uf_s = store_f.fetch_local(fr, frm)
+    check(torch.equal(rh_s, rf_s) and torch.equal(rh_s, direct_x) and int(uh_s) == int(uf_s) == 0,
+          "two_tier_world1: the hierarchical store differs from the flat store")
+    tt_store = {"collectives_hier": mesh.all_counts(), "collectives_flat": dict(flat.counts),
+                "hier_ms": cuda_time_ms(lambda: store_h.fetch_local(fr, frm), iters=10),
+                "flat_ms": cuda_time_ms(lambda: store_f.fetch_local(fr, frm), iters=10)}
+    # the flag column makes the response rows F + 1 wide: K1's odd-width path
+    flag_k1 = {}
+    idx_all = torch.randperm(Lf, device=cuda).to(torch.int32)
+    for tag, width, dt in (("bf16", 100, torch.bfloat16), ("int8_packed", 104, torch.int8)):
+        for w in (width, width + 1):
+            tbl = torch.zeros((Lf, w), dtype=dt, device=cuda)
+            flag_k1[f"{tag}_{w}"] = cuda_time_ms(lambda t=tbl: gather.gather_rows(t, idx_all), iters=20)
+    # DistTrainer on the tuple axis against the flat axis: same params, keys and batches
+    tt_train = {}
+    for tag, (m_, st_kw) in (("tuple", (mesh, dict(axis_name=ax2, hierarchical=True))), ("flat", (flat, {}))):
+        st_ = dfs.ShardedFeatureStore(features32, m_, hot_ids=f_plan, peer_hot=True, **st_kw)
+        sg_ = ShardedGraph.build(hg, m_, axis_name=st_kw.get("axis_name", "data"), hot_ids=s_plan)
+        tr_ = DistTrainer(model=dist_sage(52, None), fan_out=FAN_OUT, store=st_, sgraph=sg_, dedup_last=False,
+                          frontier_caps=caps)
+        gen_ = torch.Generator(device=cuda).manual_seed(53)
+        lab_ = st_.shard_of(labels[:, None])
+        m_.reset_counts()
+        flat.reset_counts()
+        mets_ = [tr_.train_step(None, lab_, s, mk, gen_) for s, mk in train_batches[:3]]
+        torch.cuda.synchronize()
+        tt_train[tag] = {"losses": [float(x["loss"]) for x in mets_],
+                         "params": torch.cat([p.detach().reshape(-1) for p in tr_.model.parameters()]),
+                         "collectives": m_.all_counts() if m_ is mesh else {"world": dict(flat.counts)}}
+        del st_, sg_, tr_
+    # the same kernels on the same rows: equal but for summation order (f32)
+    p_err = float((tt_train["tuple"].pop("params") - tt_train["flat"].pop("params")).abs().max())
+    l_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(tt_train["tuple"]["losses"], tt_train["flat"]["losses"]))
+    check(l_err <= LOSS_F32_TOL and p_err <= GRAD_F32_TOL,
+          f"two_tier_world1: DistTrainer on the tuple axis differs from the flat axis: {tt_train}, params {p_err}")
+    emit({"phase": "two_tier_world1", "world": 1, "backend": mesh.backend, "shape": list(mesh.shape),
+          "frontier_ids": Lf, "exchange_hier": tt_x, "store": tt_store, "k1_flag_column_ms": flag_k1,
+          "dist_trainer": tt_train, "loss_rel_err": l_err, "params_max_abs_diff": p_err,
+          "bitwise_equal": l_err == 0.0 and p_err == 0.0, "seconds": time.perf_counter() - t_tt, **card})
+    del store_h, store_f, direct_x
+    dist.destroy_process_group()
+
+    # two_tier_world4_gloo: four spawned ranks on the one card over gloo, the
+    # mesh (2, 2); the selfless 20% plan over four ranks and its dist-tier knobs
+    t0 = time.perf_counter()
+    _, s_plan4, f_plan4 = build_cache_plan(hg, F_DIM, np.array_split(arrays["train_idx"], 4), FAN_OUT, capacity,
+                                           policy="selfless", cost=cm, device=cuda)
+    tier4 = tune_dist_tier(hg.indptr, hg.indices, arrays["train_idx"], BATCH, FAN_OUT, 4, hot_ids=s_plan4)
+    plan4_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w4 = launch(two_tier_world4, 4, args=(tuple(caps), hg.num_nodes, f_plan4, s_plan4, dataclasses.asdict(tier4)),
+                backend="gloo", device="cuda", timeout_s=600, hosts=2)
+    w4_s = time.perf_counter() - t0
+    check([r["rank"] for r in w4] == [0, 1, 2, 3] and all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+                                                          and r["shape"] == [2, 2] for r in w4),
+          f"two_tier_world4_gloo: ranks {[(r['rank'], r['backend'], r['device'], r['shape']) for r in w4]}")
+    check(len({r["grad"]["loss_dist"] for r in w4}) == 1 and len({tuple(r["train"]["losses"]) for r in w4}) == 1
+          and len({r["dist_host"]["loss"] for r in w4}) == 1, "two_tier_world4_gloo: the ranks disagree on a loss")
+    tt_launch = w4[0]["train"]["launches_per_step"]
+    emit({"phase": "two_tier_world4_gloo", "world": 4, "shape": [2, 2], "backend": "gloo", "device": "cuda:0",
+          "seconds": w4_s, "plan_s": plan4_s, "tier": dataclasses.asdict(tier4),
+          "hot_rows_per_rank": {"features": int((f_plan4[0] != INVALID_ID).sum()),
+                                "structure": int((s_plan4[0] != INVALID_ID).sum())},
+          "flat_world2_ms_per_step": [r["train"]["ms_per_step"] for r in w2], "ranks": w4, **card})
+
+    # dryrun_multichip: the flagship entry point, four ranks on the card over gloo
+    t0 = time.perf_counter()
+    dr = dryrun_multichip(4, backend="gloo")
+    dr_s = time.perf_counter() - t0
+    check(all(np.isfinite(dr[k]) for k in ("loss", "biased_q_loss", "gat_loss", "dist_host_loss"))
+          and dr["mesh"] == {"host": 2, "data": 2} and dr["peer_dropped"] == 0, f"dryrun_multichip: {dr}")
+    emit({"phase": "dryrun_multichip", "n": 4, "backend": "gloo", "seconds": dr_s, **dr,
+          "two_tier_phases_s": time.perf_counter() - t_tt, **card})
+    for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k2, "gather_rows_dma"), (k3, "gather_mean"),
+                       (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose"),
+                       (k7, "sample_biased"), (k8, "sample_biased_alias")):
+        kern["two_tier_launches_per_step"] = tt_launch[name]
+
     # ---- 15. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "dist_launches_per_step",
-            "dist_host_launches_per_batch")
+            "dist_host_launches_per_batch", "two_tier_launches_per_step")
     # the profiler's record check saw launches (else it could not work)
     check(profile_device.launches_seen > 0, "the profiler recorded no kernel launch calls")
     emit({"phase": "profiler", "sessions": profile_device.sessions,

@@ -165,20 +165,23 @@ def calibrate(feature_dim: int = 128, rows: int = 1 << 17, device: DeviceLike = 
     return cm
 
 
-def calibrate_ici(mesh=None, mbytes: int = 8) -> float:
-    """Bytes per second per link of a tiled all-to-all over the mesh
-    (``dist_gnn_tpu/cache/cost_model.py:89-119``): the ranks together hold
-    ``mbytes`` MiB of f32 rows, each rank's block is split into one chunk
-    per rank and exchanged (``Mesh.all_to_all``), and the chain of
-    exchanges is timed by the slope method (``utils/timing.measure_chain``,
-    3 and 12 deep).  The bytes that cross a link are the ``(n - 1) / n``
-    of the total that leave their rank.  A world of one returns
-    ``CostModel.bandwidth_ici``.  ``mesh`` defaults to ``make_mesh()``;
-    every rank calls it (it runs collectives)."""
+def calibrate_ici(mesh=None, axis_name="data", mbytes: int = 8) -> float:
+    """Bytes per second per link of a tiled all-to-all over the mesh axis
+    ``axis_name`` (``dist_gnn_tpu/cache/cost_model.py:89-119``): the ranks
+    of the axis together hold ``mbytes`` MiB of f32 rows, each rank's block
+    is split into one chunk per rank and exchanged (``Mesh.all_to_all`` on
+    the axis' sub-mesh), and the chain of exchanges is timed by the slope
+    method (``utils/timing.measure_chain``, 3 and 12 deep).  The bytes that
+    cross a link are the ``(n - 1) / n`` of the total that leave their
+    rank.  An axis of one rank returns ``CostModel.bandwidth_ici``.  On a
+    two-tier mesh ``'host'`` and ``'data'`` give the slow tier's and the
+    fast tier's figure apart; ``'data'`` on the flat mesh is the world.
+    ``mesh`` defaults to ``make_mesh()``; every rank of the axis calls it
+    (it runs collectives)."""
     from dist_gnn_tpu_torch.parallel.mesh import make_mesh
     from dist_gnn_tpu_torch.utils.timing import measure_chain
 
-    mesh = mesh or make_mesh()
+    mesh = (mesh or make_mesh()).axis(axis_name)
     n = mesh.size
     if n < 2:
         return CostModel.bandwidth_ici

@@ -2,8 +2,8 @@
 feature store and graph, ``DistTrainer``, the ring full-graph inference,
 and the distributed host-resident tiers (``DistHostFeatureStore``,
 ``DistHostCSCStore``, ``DistHostTrainer``); counterpart of
-``dist_gnn_tpu/parallel`` on its flat mesh (the two-tier ``('host',
-'data')`` mesh and the hierarchical exchange come with the next slice).
+``dist_gnn_tpu/parallel`` on the flat mesh and on the two-tier
+``('host', 'data')`` mesh with its hierarchical exchange.
 ``initialize_distributed`` joins the process group that ``make_mesh``
 reads."""
 

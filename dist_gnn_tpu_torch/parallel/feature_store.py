@@ -27,8 +27,18 @@ Optional tiers: a per-rank **hot tier** (rows cached on this rank, served
 without the exchange), a **peer-hot** tier (rows cached on another rank,
 fetched from that rank's hot tier through a replicated id → owner table),
 and **int8 packing** (``ops/quantize.py``), whose rows ride every gather
-and exchange as ``F + 4`` bytes and are dequantized by the consumer.  The
-hierarchical (``('host', 'data')``) exchange waits for the next slice.
+and exchange as ``F + 4`` bytes and are dequantized by the consumer.
+
+**Hierarchical** (``exchange_gather_hier``, on the two-tier ``('host',
+'data')`` mesh of ``mesh.make_mesh(hosts=H)``): each round buckets the
+requests by owner *host* and ships them over the host sub-mesh, where
+they land on the chip of the same intra-host index; that chip re-buckets
+them by owner chip and ships them over the data sub-mesh; the owner
+serves through K1 with a served-flag column appended, and the responses
+retrace both stages.  Requests cross the slow tier once each, and the
+peer-hot tier of a hierarchical store stays inside a host (per-host union
+tables, rounds on the data sub-mesh), as the reference keeps its P2P
+cache inside a node.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from dist_gnn_tpu_torch.graph import INVALID_ID
 from dist_gnn_tpu_torch.ops.gather import gather_rows
 from dist_gnn_tpu_torch.ops.hashtable import SortedIdTable
 from dist_gnn_tpu_torch.ops.quantize import dequantize_unpack, quantize_pack
-from dist_gnn_tpu_torch.parallel.mesh import Mesh
+from dist_gnn_tpu_torch.parallel.mesh import Mesh, check_axis
 
 _PAD_KEY = np.iinfo(np.int32).max  # sorts after every id; equals INVALID_ID
 
@@ -161,25 +171,92 @@ def exchange_gather(
             return out, pending.sum(dtype=torch.int32) + oor
 
 
-def build_union_tables(hot_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """The peer-hot tier's id → owning rank table of a flat mesh:
-    ``(sorted ids [U], owner [U])`` over every rank's hot ids (``hot_ids``
-    [n, C], INVALID padded); an id cached by several ranks routes to the
-    lowest.  Padding holds int32.max, which matches no real id.  (The
-    per-host tables of a two-tier mesh wait with the hierarchical
-    exchange.)"""
+def exchange_gather_hier(
+    local_shard: torch.Tensor,  # [shard_size, F] — this rank's row range
+    ids: torch.Tensor,  # [L] int32 global ids (INVALID padded)
+    mask: torch.Tensor,  # [L] bool
+    mesh: Mesh,  # the two-tier mesh (its host and data sub-meshes)
+    shard_size: int,
+    budget_host: Optional[int] = None,
+    budget_data: Optional[int] = None,
+    lossless: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-stage exchange of a two-tier mesh (module doc):
+    ``([L, F] rows, unserved)`` as :func:`exchange_gather` returns them.
+    Stage 1 rides the host sub-mesh with ``budget_host`` slots per owner
+    host (default :func:`request_budget` over H), stage 2 the data
+    sub-mesh with ``budget_data`` per owner chip (default ``H *
+    budget_host``, which stage 1 cannot overflow).  A request can miss
+    either stage, so every served row carries a flag column back; lossless
+    rounds repeat both stages until no rank has one pending, one world
+    all-reduce of the pending count a round, read back.  ``lossless=False``
+    does one round and counts both stages' overflow.  A world of one
+    gathers straight from its shard when lossless."""
+    H, D = mesh.shape
+    n = mesh.size
+    host, data = mesh.axis("host"), mesh.axis("data")
+    L, F = ids.shape[0], local_shard.shape[1]
+    Bh = budget_host if budget_host is not None else request_budget(L, H)
+    Bd = budget_data if budget_data is not None else H * Bh
+    # ids outside the table are unservable: zero rows, counted, never pending
+    in_range = mask & (ids >= 0) & (ids < n * shard_size)
+    oor = (mask & ~in_range).sum(dtype=torch.int32)
+    if n == 1 and lossless:
+        return _serve_rows(local_shard, ids, in_range), oor
+    base = mesh.rank * shard_size
+    pending = in_range
+    out = torch.zeros((L, F), dtype=local_shard.dtype, device=ids.device)
+    while True:
+        owner = torch.where(pending, torch.clamp(torch.div(ids, shard_size, rounding_mode="floor"), 0, n - 1), n)
+        plan1, recv1, ovf1 = make_request(ids, pending, host, shard_size, Bh,
+                                          owners=torch.div(owner, D, rounding_mode="floor"))
+        relay = recv1.reshape(-1)  # [H * Bh] requests now on their owner host
+        rmask = relay != INVALID_ID
+        owner_chip = torch.where(rmask, torch.remainder(torch.div(relay, shard_size, rounding_mode="floor"), D), D)
+        plan2, recv2, ovf2 = make_request(relay, rmask, data, shard_size, Bd, owners=owner_chip)
+        local_idx = recv2.to(torch.int64) - base
+        serve = (recv2 != INVALID_ID) & (local_idx >= 0) & (local_idx < local_shard.shape[0])
+        rows = _serve_rows(local_shard, local_idx, serve)  # [D, Bd, F]
+        # the flag tells a stage-2 drop from a zero row
+        payload = torch.cat([rows, serve[..., None].to(rows.dtype)], dim=-1)
+        back1 = return_response(plan2, payload, data)  # [H * Bh, F + 1]
+        got = return_response(plan1, back1.reshape(H, Bh, F + 1), host)  # [L, F + 1]
+        served = pending & plan1.in_budget & (got[:, F] > 0)
+        out = torch.where(served[:, None], got[:, :F], out)
+        pending = pending & ~served
+        if not lossless:
+            return out, ovf1 + ovf2 + oor
+        if mesh.sum_to_host(pending.sum()) == 0:
+            return out, pending.sum(dtype=torch.int32) + oor
+
+
+def build_union_tables(hot_ids: np.ndarray, num_hosts: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """The peer-hot tier's id → owner tables over the hot ids (``hot_ids``
+    [n, C], INVALID padded; an id cached by several owners routes to the
+    lowest).  ``num_hosts == 1``: one table ``(sorted ids [U], owner [U])``
+    over every rank, owner the rank (the flat mesh).  ``num_hosts == H``:
+    per-host tables ``[H, U]`` over the ``D = n // H`` ranks of each host,
+    owner the intra-host index (the two-tier mesh: rows hot only on
+    another host are not in a host's table).  Padding holds int32.max,
+    which matches no real id."""
     n, C = hot_ids.shape
-    flat = hot_ids.reshape(-1)
-    owners = np.repeat(np.arange(n, dtype=np.int32), C)
-    keep = flat != INVALID_ID
-    tbl = SortedIdTable.build(flat[keep], priority=owners[keep], owners=owners[keep], device="cpu")
-    s, o = tbl.sorted_ids.numpy(), tbl.owners.numpy()
-    U = max(len(s), 1)
-    us = np.full((U,), _PAD_KEY, np.int32)
-    uo = np.zeros((U,), np.int32)
-    us[: len(s)] = s
-    uo[: len(o)] = o
-    return us, uo
+    if n % num_hosts:
+        raise ValueError(f"{n} ranks do not split into {num_hosts} hosts")
+    D = n // num_hosts
+    tables = []
+    for h in range(num_hosts):
+        flat = hot_ids[h * D : (h + 1) * D].reshape(-1)
+        owners = np.repeat(np.arange(D, dtype=np.int32), C)
+        keep = flat != INVALID_ID
+        tbl = SortedIdTable.build(flat[keep], priority=owners[keep], owners=owners[keep], device="cpu")
+        tables.append((tbl.sorted_ids.numpy(), tbl.owners.numpy()))
+    U = max(max(len(s) for s, _ in tables), 1)
+    us = np.full((num_hosts, U), _PAD_KEY, np.int32)
+    uo = np.zeros((num_hosts, U), np.int32)
+    for h, (s, o) in enumerate(tables):
+        us[h, : len(s)] = s
+        uo[h, : len(o)] = o
+    return (us[0], uo[0]) if num_hosts == 1 else (us, uo)
 
 
 def _probe(sorted_ids: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -230,11 +307,16 @@ def _as_tensor(x) -> torch.Tensor:
 
 class ShardedFeatureStore:
     """A feature matrix row-sharded over the ranks, fetched through
-    :func:`exchange_gather`, with the optional hot, peer-hot and int8 tiers
+    :func:`exchange_gather` (or :func:`exchange_gather_hier` when
+    ``hierarchical``), with the optional hot, peer-hot and int8 tiers
     (module doc).  Every rank builds it from the same host matrix and keeps
     only its padded row range and its own hot rows on its device.
 
-    ``hot_ids`` is the [n, C] INVALID-padded matrix of per-rank hot ids of
+    ``axis_name`` is ``'data'`` on the flat mesh or ``('host', 'data')`` on
+    the two-tier one; either way rank ``r`` holds shard ``r``.
+    ``hierarchical`` (the tuple axis only) takes the two-stage exchange and
+    keeps the peer-hot tier inside a host.  ``hot_ids`` is the [n, C]
+    INVALID-padded matrix of per-rank hot ids of
     ``cache/builder.build_cache_plan``.  ``quantize`` packs the rows to
     int8 (``features`` must then be float; :meth:`dequantize` unpacks a
     fetch).  ``features`` is a numpy array or a tensor of any dtype."""
@@ -243,6 +325,7 @@ class ShardedFeatureStore:
         self,
         features: Union[np.ndarray, torch.Tensor],
         mesh: Mesh,
+        axis_name="data",
         budget_slack: float = 2.0,
         hot_ids: Optional[np.ndarray] = None,
         quantize: bool = False,
@@ -250,11 +333,11 @@ class ShardedFeatureStore:
         peer_hot: bool = False,
         lossless: bool = True,
     ):
-        if hierarchical:
-            raise NotImplementedError(
-                "the hierarchical ('host', 'data') exchange waits for the next slice (ROADMAP Queue 1 item 8)"
-            )
+        self.axis_name, two_tier = check_axis(mesh, axis_name)
+        if hierarchical and not two_tier:
+            raise ValueError("the hierarchical exchange needs the ('host', 'data') axis pair")
         self.mesh = mesh
+        self.hierarchical = hierarchical
         self.quantized = quantize
         self.lossless = lossless
         self.peer_hot = peer_hot
@@ -281,9 +364,15 @@ class ShardedFeatureStore:
             self.hot_sorted = torch.from_numpy(mine).to(mesh.device)
             self.hot_rows = rows.contiguous()
             if peer_hot:
-                us, uo = build_union_tables(hot_ids)
-                self.union_sorted = torch.from_numpy(us).to(mesh.device)
-                self.union_owner = torch.from_numpy(uo).to(mesh.device)
+                if hierarchical:  # this host's table: owners are intra-host indices
+                    H, D = mesh.shape
+                    us, uo = build_union_tables(hot_ids, num_hosts=H)
+                    if H > 1:
+                        us, uo = us[me // D], uo[me // D]
+                else:
+                    us, uo = build_union_tables(hot_ids)
+                self.union_sorted = torch.from_numpy(np.ascontiguousarray(us)).to(mesh.device)
+                self.union_owner = torch.from_numpy(np.ascontiguousarray(uo)).to(mesh.device)
 
     @property
     def feature_dim(self) -> int:
@@ -303,8 +392,10 @@ class ShardedFeatureStore:
         return part.contiguous()
 
     def request_budget_for(self, num_ids: int) -> int:
-        """The per-peer budget of a fetch of ``num_ids`` ids."""
-        return request_budget(num_ids, self.num_shards, self.budget_slack)
+        """The first-stage budget of a fetch of ``num_ids`` ids: per rank
+        for the flat exchange, per host for the hierarchical one."""
+        n = self.mesh.shape[0] if self.hierarchical else self.num_shards
+        return request_budget(num_ids, n, self.budget_slack)
 
     def dequantize(self, rows: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Undo the int8 packing after a fetch (the rows unchanged when the
@@ -312,6 +403,10 @@ class ShardedFeatureStore:
         return dequantize_unpack(rows, out_dtype) if self.quantized else rows
 
     def _exchange(self, ids, mask, budget):
+        if self.hierarchical:
+            return exchange_gather_hier(
+                self.features, ids, mask, self.mesh, self.shard_size, budget_host=budget, lossless=self.lossless
+            )
         return exchange_gather(
             self.features, ids, mask, self.mesh, self.shard_size, budget=budget, lossless=self.lossless
         )
@@ -328,9 +423,14 @@ class ShardedFeatureStore:
         miss = mask & ~hit
         peer_out = peer_served = None
         if self.union_sorted is not None:
-            Pb = budget if budget is not None else request_budget(ids.shape[0], self.num_shards)
+            if self.hierarchical:  # inside the host; ``budget`` is the host stage's
+                peers = self.mesh.axis("data")
+                Pb = request_budget(ids.shape[0], peers.size, self.budget_slack)
+            else:
+                peers = self.mesh
+                Pb = budget if budget is not None else request_budget(ids.shape[0], self.num_shards)
             peer_out, peer_served = peer_hot_fetch(
-                self.mesh, self.hot_sorted, self.hot_rows, self.union_sorted, self.union_owner,
+                peers, self.hot_sorted, self.hot_rows, self.union_sorted, self.union_owner,
                 ids, miss, Pb,
             )
             miss = miss & ~peer_served

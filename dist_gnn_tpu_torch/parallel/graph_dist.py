@@ -42,7 +42,7 @@ from dist_gnn_tpu_torch.parallel.feature_store import (
     return_response,
     shard_rows,
 )
-from dist_gnn_tpu_torch.parallel.mesh import Mesh
+from dist_gnn_tpu_torch.parallel.mesh import Mesh, check_axis
 from dist_gnn_tpu_torch.utils import native
 
 
@@ -88,12 +88,17 @@ class ShardedGraph:
     hot_alias_idx: Optional[torch.Tensor] = None
 
     @staticmethod
-    def build(hg: HostGraph, mesh: Mesh, hot_ids: Optional[np.ndarray] = None) -> "ShardedGraph":
+    def build(hg: HostGraph, mesh: Mesh, axis_name="data", hot_ids: Optional[np.ndarray] = None) -> "ShardedGraph":
         """Every rank builds from the same host graph and keeps its own
         shard (by the port's native ``extract_subcsc`` and, for a weighted
         graph, ``build_alias`` per shard) and, with ``hot_ids`` ([n, C],
         INVALID padded, e.g. ``build_cache_plan``'s), its row of hot ids
-        with their sub-CSC and alias tables."""
+        with their sub-CSC and alias tables.  ``axis_name`` is ``'data'``
+        or, on a two-tier mesh, ``('host', 'data')``: either way the
+        shards run over the flat world (rank ``r`` holds shard ``r``) and
+        the owner-side exchange stays flat, as JAX's does over the tuple
+        axis."""
+        check_axis(mesh, axis_name)
         n, me = mesh.size, mesh.rank
         shard = shard_rows(hg.num_nodes, n)
         indptr64 = np.asarray(hg.indptr, dtype=np.int64)

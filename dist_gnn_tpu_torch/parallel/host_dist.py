@@ -18,6 +18,11 @@ Counterpart of ``dist_gnn_tpu/parallel/host_dist.py`` on
                             stream of their own while the previous batch
                             computes.
 
+On the two-tier ``('host', 'data')`` mesh the union tables are per host
+and the peer-hot round rides the data sub-mesh only: a row hot only on
+another host is staged from this host's memory, as the reference keeps
+its P2P cache inside a node.
+
 Under a *selfless* plan (disjoint per-rank hot sets, ``cache/policy.py``)
 the union covers n times one rank's capacity, so fewer rows are staged
 from the host than under the *selfish* plan (every rank the same hot
@@ -36,8 +41,8 @@ Each round of the peer-hot fetch reads a pending count back
 (``Mesh.sum_to_host``), where the JAX package loops on the device: the
 host waits for the exchange at the start of compute(i-1) and only then
 reaches stage(i), which still overlaps the forward and backward queued
-behind it.  A world of one has nothing peer-hot (the union is its own hot
-set) and runs no round.
+behind it.  A host of one rank (a world of one, or the mesh ``(H, 1)``)
+has nothing peer-hot (the union is its own hot set) and runs no round.
 
 Keys: batch i's sampler and dropout generators are
 ``pipeline.batch_keys(seed, i, device, rank)`` (rank 0's are a single
@@ -63,8 +68,8 @@ from dist_gnn_tpu_torch.graph import INVALID_ID, Graph
 from dist_gnn_tpu_torch.host_tier import HostFeatureStore, HotTier, StagedRows, _hit_rate, copy_ms
 from dist_gnn_tpu_torch.parallel.feature_store import _probe, _serve_rows, build_union_tables, peer_hot_fetch, \
     request_budget
-from dist_gnn_tpu_torch.parallel.host_struct import check_flat, check_plan
-from dist_gnn_tpu_torch.parallel.mesh import Mesh
+from dist_gnn_tpu_torch.parallel.host_struct import check_plan
+from dist_gnn_tpu_torch.parallel.mesh import Mesh, check_axis
 from dist_gnn_tpu_torch.parallel.trainer_dist import sum_gradients
 from dist_gnn_tpu_torch.training.pipeline import HostTierTrainer, batch_keys
 from dist_gnn_tpu_torch.training.trainer import dist_masked_nll_loss
@@ -77,41 +82,55 @@ DistStaged = StagedRows
 
 
 class DistHostFeatureStore(HostFeatureStore):
-    """This rank's hot tier on its device, the union routing table of every
-    rank's hot ids, and the host base (module doc).
+    """This rank's hot tier on its device, the union routing table of the
+    hot ids of every rank of its host (every rank on the flat mesh), and
+    the host base (module doc).
 
     ``hot_ids`` is the [n, C] per-rank feature plan (selfish or selfless,
     ``cache/builder.build_cache_plan``), INVALID padded.  ``miss_budget``
-    sizes the common batch's staged slab.  ``hot_dtype`` (a torch float
-    dtype) casts the hot rows, a raw cast: integer dtypes raise (int8 takes
-    the packed store, ``ShardedFeatureStore(quantize=True)``)."""
+    sizes the common batch's staged slab.  ``axis_name`` is ``'data'`` or,
+    on a two-tier mesh, ``('host', 'data')``: then ``num_hosts`` is H and
+    ``peer_size`` D, else 1 and n.  ``hot_dtype`` (a torch float dtype)
+    casts the hot rows, a raw cast: integer dtypes raise (int8 takes the
+    packed store, ``ShardedFeatureStore(quantize=True)``)."""
 
     def __init__(self, host_features: np.ndarray, mesh: Mesh, hot_ids: np.ndarray, miss_budget: int,
-                 hot_dtype: Optional[torch.dtype] = None, axis_name="data"):
-        check_flat(axis_name)
+                 axis_name="data", hot_dtype: Optional[torch.dtype] = None):
+        self.axis_name, self.hierarchical = check_axis(mesh, axis_name)
         hot_ids = check_plan(hot_ids, mesh)
         super().__init__(host_features, hot_ids[mesh.rank], miss_budget, hot_dtype=hot_dtype, device=mesh.device)
         self.mesh = mesh
         self.num_shards = mesh.size
+        self.num_hosts, self.peer_size = mesh.shape if self.hierarchical else (1, mesh.size)
         if self.hot_tier.sorted_ids.numel() == 0:  # one INVALID row, so a peer's request finds a table
             self.hot_tier = HotTier(
                 sorted_ids=torch.full((1,), INVALID_ID, dtype=torch.int32, device=self.device),
                 rows=torch.zeros((1, self.feature_dim), dtype=self.hot_tier.rows.dtype, device=self.device),
             )
-        us, uo = build_union_tables(hot_ids)
+        us, uo = build_union_tables(hot_ids, num_hosts=self.num_hosts)
+        if self.num_hosts > 1:  # this rank's host's table (JAX's ``_union_for_chip``)
+            host = mesh.rank // self.peer_size
+            us, uo = us[host], uo[host]
         self.union_sorted_np = us
-        self.union_sorted = torch.from_numpy(us).to(self.device)
-        self.union_owner = torch.from_numpy(uo).to(self.device)
+        self.union_sorted = torch.from_numpy(np.ascontiguousarray(us)).to(self.device)
+        self.union_owner = torch.from_numpy(np.ascontiguousarray(uo)).to(self.device)
+
+    @property
+    def peers(self) -> Mesh:
+        """The ranks whose hot tiers this rank's peer-hot round reaches:
+        its host's (the data sub-mesh) on the two-tier mesh, the world on
+        the flat one."""
+        return self.mesh.axis("data") if self.hierarchical else self.mesh
 
     def stage(self, frontier_np: np.ndarray, fmask_np: np.ndarray) -> DistStaged:
         """Host side, for this rank's frontier [L]: gather the masked slots
-        hot on NO rank (a probe of the union table) from the host base into
-        the pinned slab and start their copy.  Lossless: every such row is
-        staged, the slab grows past ``miss_budget``."""
+        hot on no rank of this host (a probe of its union table) from the
+        host base into the pinned slab and start their copy.  Lossless:
+        every such row is staged, the slab grows past ``miss_budget``."""
         return self._stage(self.union_sorted_np, frontier_np, fmask_np)
 
     def union_hit_rate(self, ids: np.ndarray) -> float:
-        """Share of ``ids`` hot on some rank."""
+        """Share of ``ids`` hot on some rank of this rank's host."""
         return _hit_rate(self.union_sorted_np, ids)
 
     def assemble_local(
@@ -123,24 +142,25 @@ class DistHostFeatureStore(HostFeatureStore):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The three tiers' rows for this rank's frontier: ``([L, F] rows,
         peer_dropped)``.  Local hot hits through K1, peer-hot ids from the
-        caching rank (lossless rounds), staged rows scattered to their
+        caching rank of this host (lossless rounds over ``peers``, the data
+        sub-mesh on the two-tier mesh), staged rows scattered to their
         slots; zero rows where masked out.  ``peer_dropped`` (0-d int32)
-        counts ids hot somewhere that were neither local nor served: 0
+        counts ids hot in the union that were neither local nor served: 0
         unless the union table and the serving path disagree.  Every rank
-        calls it in step (it runs collectives above a world of one).
-        Call ``staged.wait()`` first."""
+        of ``peers`` calls it in step (it runs collectives when there is
+        more than one).  Call ``staged.wait()`` first."""
         hot = self.hot_tier
         pos, local_hit = _probe(hot.sorted_ids, ids, mask)
         out = _serve_rows(hot.rows, pos, local_hit)  # K1
         _, hot_somewhere = _probe(self.union_sorted, ids, mask)
-        if self.mesh.size > 1:
+        if self.peers.size > 1:
             peer_rows, peer_served = peer_hot_fetch(
-                self.mesh, hot.sorted_ids, hot.rows, self.union_sorted, self.union_owner,
+                self.peers, hot.sorted_ids, hot.rows, self.union_sorted, self.union_owner,
                 ids, mask & ~local_hit, budget,
             )
             out = torch.where(peer_served[:, None], peer_rows, out)
             local_hit = local_hit | peer_served
-        # a world of one: the union is this rank's own hot set, nothing to fetch
+        # one rank a host: the union is this rank's own hot set, nothing to fetch
         peer_dropped = (hot_somewhere & ~local_hit).sum(dtype=torch.int32)
         return out.index_copy_(0, staged.slots, staged.rows.to(out.dtype)), peer_dropped
 
@@ -174,7 +194,7 @@ class DistHostTrainer(HostTierTrainer):
     def _features(self, blocks, staged: DistStaged):
         staged.wait()
         inp = blocks[-1]
-        budget = request_budget(inp.frontier.shape[0], self.mesh.size, self.peer_budget_slack)
+        budget = request_budget(inp.frontier.shape[0], self.store.peer_size, self.peer_budget_slack)
         return self.store.assemble_local(inp.frontier, inp.frontier_mask, staged, budget)
 
     def compute_step(self, blocks, staged: DistStaged, labels_b, seed_mask, key) -> Dict[str, torch.Tensor]:

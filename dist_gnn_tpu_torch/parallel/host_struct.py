@@ -27,27 +27,22 @@ with the budget doubled past them (JAX grows every chip's budget to the
 largest chip's need; a rank here grows only its own, which stages the same
 rows).  Per hop it reports the staged rows (``count``), the rows staged
 beyond the configured budget (``overflow``) and the staged rows of
-another rank's node range (``remote``: a real multi-host job would read
-those over the network).  Each rank has its own node range here, as on
-JAX's flat mesh; the two-tier ``('host', 'data')`` mesh waits for the
-hierarchical slice.
+another host's node range (``remote``: a real multi-host job would read
+those over the network).  On the flat mesh each rank is its own host
+(``num_hosts = n``, ``peer_size = 1``); on the two-tier ``('host',
+'data')`` mesh the node ranges are per host (``num_hosts = H``,
+``peer_size = D``), as in JAX's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from dist_gnn_tpu_torch.host_tier import HostCSCStore
-from dist_gnn_tpu_torch.parallel.mesh import Mesh
-
-
-def check_flat(axis_name) -> None:
-    """The port's distributed host tiers run on the flat mesh only."""
-    if not isinstance(axis_name, str):
-        raise NotImplementedError(
-            f"axis_name {axis_name!r}: the two-tier ('host', 'data') mesh waits for the hierarchical "
-            "exchange (ROADMAP Queue 1 item 8)"
-        )
+from dist_gnn_tpu_torch.ops.hashtable import np_in_sorted
+from dist_gnn_tpu_torch.parallel.mesh import Mesh, check_axis
 
 
 def check_plan(hot_ids: np.ndarray, mesh: Mesh) -> np.ndarray:
@@ -63,18 +58,31 @@ class DistHostCSCStore(HostCSCStore):
     hop (module doc).  ``hot_ids`` is the [n, C] per-rank structure plan
     (selfish or selfless, ``cache/builder.build_cache_plan``), INVALID
     padded; ``miss_budget`` sizes a hop's staged rows, past which it
-    re-plans.  ``hit_rate(seeds)`` is this rank's (JAX's over the [n, L]
-    seed matrix is the mean of the ranks' for rows of equal length)."""
+    re-plans.  ``axis_name``: ``'data'`` or, on a two-tier mesh,
+    ``('host', 'data')``."""
 
     def __init__(self, hg, mesh: Mesh, hot_ids: np.ndarray, miss_budget: int, deg_cap: int = 128,
                  axis_name="data"):
-        check_flat(axis_name)
+        self.axis_name, self.hierarchical = check_axis(mesh, axis_name)
         hot_ids = check_plan(hot_ids, mesh)
         super().__init__(hg, hot_ids[mesh.rank], miss_budget, deg_cap=deg_cap, device=mesh.device)
         self.mesh = mesh
         self.num_shards = mesh.size
         self.num_nodes = int(hg.num_nodes)
-        self.rows_per_part = -(-self.num_nodes // mesh.size)  # node-range owner = id // rows_per_part
+        # node-range ownership (whose host memory holds a row): per host
+        self.num_hosts, self.peer_size = mesh.shape if self.hierarchical else (mesh.size, 1)
+        self.rows_per_part = -(-self.num_nodes // self.num_hosts)  # owner host = id // rows_per_part
+
+    def hit_rate(self, seeds_np: np.ndarray) -> float:
+        """Share of the seeds of every rank in its rank's hot rows: this
+        rank's ``seeds_np`` [L] (every entry, as JAX's counts its [n, L]
+        matrix) summed with the others' by one all-reduce, so ranks of
+        unequal L weigh by their L.  Every rank calls it."""
+        hits = float(np.sum(np_in_sorted(self.sorted_np, seeds_np)[0]))
+        tot = torch.tensor([hits, float(len(seeds_np))], dtype=torch.float64, device=self.mesh.device)
+        if self.mesh.size > 1:
+            tot = self.mesh.all_reduce(tot)
+        return float(tot[0]) / max(float(tot[1]), 1.0)
 
     def plan_hop(self, seeds_np: np.ndarray, mask_np: np.ndarray, k: int, rng: np.random.Generator):
         """Probe this rank's hot rows and stage the misses' adjacency for
@@ -97,7 +105,7 @@ class DistHostCSCStore(HostCSCStore):
                 budget *= 2
             local_rows, a, m, ovf = plan(min(budget, L))
         staged_seeds = np.asarray(seeds_np)[a["row_of"]].astype(np.int64)
-        remote = int(np.sum(staged_seeds // self.rows_per_part != self.mesh.rank))
+        remote = int(np.sum(staged_seeds // self.rows_per_part != self.mesh.rank // self.peer_size))
         # after a re-plan ovf is 0; the overflow reports the rows staged
         # beyond the configured budget (served, not dropped)
         return local_rows, self._staged(a, m, ovf + max(0, m - self.miss_budget), remote)

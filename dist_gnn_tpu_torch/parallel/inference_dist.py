@@ -8,7 +8,9 @@ block it holds (owner ``(d + t) % D``) into its own rows, then passes the
 block one step around the ring (``Mesh.shift``: a send to rank ``d - 1``
 and a receive from ``d + 1``, the JAX package's ``ppermute``); the block
 is not passed after the last step.  Cross-rank traffic is ``D - 1``
-contiguous blocks per layer.
+contiguous blocks per layer.  A two-tier ``('host', 'data')`` mesh runs
+its ring over the flat world (rank order), as the JAX package re-flattens
+any mesh.
 
 Each rotation's edge walk is the single-device walk's
 (``models/inference.py``): K1 gathers of the held block in chunks of

@@ -11,6 +11,10 @@ NLL over the GLOBAL valid count (``training.dist_masked_nll_loss``),
 backward, one all-reduce of every gradient in one flat buffer, and the
 same Adam step as :class:`~dist_gnn_tpu_torch.training.Trainer`.  Every
 rank starts from the same parameters and so stays equal to the others.
+The axis comes from the store: on the two-tier ``('host', 'data')`` mesh
+the features ride the store's hierarchical exchange, while the seeds, the
+labels, the owner-side sampler and the sums (JAX's ``psum`` over both
+axes) run over the flat world, whose index is the rank.
 DDP is not used: it averages gradients, where the JAX trainer sums the
 gradients of the globally normalised loss.
 
@@ -76,6 +80,7 @@ class DistTrainer:
 
     def __post_init__(self):
         self.mesh = self.store.mesh
+        self.axis_name = self.store.axis_name  # the store's layout is authoritative
         self.device = self.mesh.device
         self.optimizer = make_optimizer(self.model.parameters(), self.lr, self.weight_decay)
 

@@ -612,16 +612,23 @@ def test_world_of_one_equals_host_tier_trainer(tmp_path, host_struct):
 
 
 def test_refusals():
-    """A two-tier axis, replace=True with host structure and an integer hot
-    dtype raise, as in the JAX package (``host_dist.py:118-125, :327-333``)."""
+    """replace=True with host structure and an integer hot dtype raise, as
+    in the JAX package (``host_dist.py:118-125, :327-333``); the two-tier
+    axis builds on the mesh (1, 1) with JAX's ``num_hosts`` and
+    ``peer_size``."""
     arrays, _ = _data()
     mesh = tmesh.Mesh(rank=0, size=1, device=torch.device("cpu"))
     plan = _plans()[0][:1]
     hg = THostGraph(indptr=arrays["indptr"], indices=arrays["indices"])
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        DistHostFeatureStore(arrays["features"], mesh, plan, 8, axis_name=("host", "data"))
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        DistHostCSCStore(hg, mesh, plan, 8, axis_name=("host", "data"))
+    two = tmesh.Mesh(rank=0, size=1, device=torch.device("cpu"), shape=(1, 1))
+    jtwo = jmake_mesh(1, ("host", "data"), hosts=1)
+    hs = DistHostFeatureStore(arrays["features"], two, plan, 8, axis_name=("host", "data"))
+    # JAX's sets these from its mesh, then cannot shard a one-host union table over 'host'
+    assert hs.hierarchical and (hs.num_hosts, hs.peer_size) == (jtwo.shape["host"], jtwo.shape["data"]) == (1, 1)
+    gs = DistHostCSCStore(hg, two, plan, 8, axis_name=("host", "data"))
+    jgs = JDistHostCSCStore(JHostGraph(indptr=arrays["indptr"], indices=arrays["indices"]), jtwo, plan, 8,
+                            axis_name=("host", "data"))
+    assert (gs.num_hosts, gs.peer_size, gs.rows_per_part) == (jgs.num_hosts, jgs.peer_size, jgs.rows_per_part)
     with pytest.raises(ValueError):
         DistHostFeatureStore(arrays["features"], mesh, plan, 8, hot_dtype=torch.int8)
     with pytest.raises(ValueError):

@@ -354,12 +354,6 @@ def test_request_budget_and_shard_rows_match_jax():
                 assert tfs.request_budget(n_ids, n, slack) == jfs.request_budget(n_ids, n, slack)
 
 
-def test_hierarchical_exchange_waits():
-    mesh = tmesh.Mesh(rank=0, size=1, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.ShardedFeatureStore(np.zeros((4, 2), np.float32), mesh, hierarchical=True)
-
-
 def test_replicate_to_mesh_and_axis_size():
     mesh = tmesh.Mesh(rank=1, size=2, device=torch.device("cpu"))
     tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "ids": [np.array([1, 2], np.int32), torch.ones(2)]}
