@@ -112,11 +112,17 @@ weights from a seed.  Phases, one JSON line each:
     and K8, ``sample_biased_alias``, both modes each, held against their
     plain versions on injected keys at edge shapes — degrees 0, 1, k, 2k,
     2k + 1, 31–33, a hub of 100,000, an all-zero-weight row, zero weights,
-    padded seeds, int32 and int64 ``indptr``, k 5/10/15/40 — and at the
-    three hops of a weighted request: ids and mask equal except rows whose
-    k-th and (k+1)-th plain Gumbel keys lie within 2 ulp, counted and
-    printed; no zero-weight edge drawn; event, device and plain ms and the
-    byte bound); training_sage_biased (the SAGE bench config on the
+    padded seeds, int32 and int64 ``indptr``, k 5/10/15/40, and for K7's
+    cut 1023/1024/1025, a 40,000-edge row with two slices of zero weights
+    and the hub as 20 seeds, a 400,000-edge row past the long-row
+    kernel's shared-memory table, also with ``max_degree`` understated at
+    1,024 and 2,048 — at the three hops of a weighted request and
+    at a hop of 64 seeds that are all the 226,746-edge row: ids and mask
+    equal except rows whose k-th and (k+1)-th plain Gumbel keys lie within
+    2 ulp, counted and printed; no zero-weight edge drawn; event, device
+    and plain ms and the byte bound, K7's in both modes and per hop; one
+    K7 call of each mode under ``torch.cuda.set_sync_debug_mode("error")``);
+    training_sage_biased (the SAGE bench config on the
     weighted graph with alias tables under the port's ``tune_sampler_for``
     caps: 8 timed steps, K8 three times a step, the overflow counters,
     busy share and top kernels (an empty profile fails), the weighted and
@@ -124,7 +130,7 @@ weights from a seed.  Phases, one JSON line each:
     8 requests, then 2 epochs and val_acc >= 0.99); host_tier_biased (the
     host structure and features cell on the weighted graph: K8 on the hot
     rows and K7 on the staged rows, card == CPU per hop under the same ulp
-    rule, 12 timed batches after 2 warm-up with the hub presampling's host
+    rule, K7 alone on each hop's staged rows timed, 12 timed batches after 2 warm-up with the hub presampling's host
     ms).
 
 16. the distributed package (``dist_gnn_tpu_torch/parallel``) at a world
@@ -959,6 +965,15 @@ def main() -> int:
         check(bool(hits), f"the profiler recorded no {kernel_name}: {sorted(k[:70] for k in kernels)[:12]}")
         return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
 
+    def device_ms_per_call(fn, prefix, iters=10):
+        """Device ms of one call of ``fn`` summed over the kernels whose name
+        holds ``prefix`` (a call may launch several), from the profiler;
+        fails if it recorded none."""
+        kernels, _ = profile_device(fn, iters=iters)
+        hits = [v for k, v in kernels.items() if prefix in k]
+        check(bool(hits), f"the profiler recorded no {prefix}: {sorted(k[:70] for k in kernels)[:12]}")
+        return sum(ms for ms, _ in hits) / iters
+
     counters = kernel_counters()
 
     def reset_counts():
@@ -1216,20 +1231,25 @@ def main() -> int:
 
     # K7 and K8 at edge shapes: degrees 0, 1, k, 2k, 2k + 1, 31-33, a hub
     # of 100,000, an all-zero-weight row, a tenth of the weights 0, padded
+    # seeds; K7's cut: 1023, 1024 and 1025 (each side of its short-row limit
+    # and of a slice warp's least range), a 40,000-edge row of many slices
+    # with two slices' worth of zero weights, and the hub repeated as 20
     # seeds; int32 and int64 indptr; both modes of each
     wrng = np.random.default_rng(8)
     wgen = torch.Generator().manual_seed(9)
     w_edge_rows, w_ties = [], {"K7": 0, "K8": 0}
     for kk in (5, 10, 15, 40):
-        degs = [0, 1, kk, 2 * kk, 2 * kk + 1, 31, 32, 33, 100_000, 50] + list(wrng.integers(0, 80, 2000))
+        degs = [0, 1, kk, 2 * kk, 2 * kk + 1, 31, 32, 33, 100_000, 50, 1023, 1024, 1025, 40_000] \
+            + list(wrng.integers(0, 80, 2000))
         n_e = len(degs) + 10
         e_dst = np.repeat(np.arange(len(degs)), degs)
         e_w = np.abs(wrng.standard_normal(len(e_dst))).astype(np.float32)
         e_w[wrng.random(len(e_w)) < 0.1] = 0
         e_ip = np.concatenate([[0], np.cumsum(degs)])
         e_w[e_ip[9]:e_ip[10]] = 0  # all zero
+        e_w[e_ip[13] + 1024:e_ip[13] + 3072] = 0  # whole slices of zero weights
         ehg = HostGraph.from_coo(wrng.integers(0, n_e, len(e_dst)), e_dst, n_e, probs=e_w)
-        e_seeds = np.concatenate([np.arange(len(degs)), wrng.integers(0, n_e, 3000)]).astype(np.int32)
+        e_seeds = np.concatenate([np.arange(len(degs)), wrng.integers(0, n_e, 3000), np.full(20, 8)]).astype(np.int32)
         e_seeds[::7] = INVALID_ID
         e_st = torch.from_numpy(e_seeds).to(cuda)
         B = len(e_seeds)
@@ -1254,6 +1274,40 @@ def main() -> int:
                 w_edge_rows.append({"k": kk, "indptr": ip_dtype.__name__, "replace": replace,
                                     "near_tie_rows_k7": n7, "near_tie_rows_k8": n8,
                                     "k8_overflow": int(got8.overflow)})
+    # K7 past its shared-memory chunk table: a row of 400,000 edges (1,563
+    # chunks, above the long-row kernel's 1,536 in shared memory, so with
+    # replacement its sums go to the workspace), beside rows of 100,000,
+    # 3,000, 1,025 and fewer, the long row as 6 more seeds; then the same
+    # graph with max_degree understated, at 1,024 (every row to the row
+    # kernel) and at 2,048 (the 400,000-edge row past its workspace): a row
+    # longer than max_degree promised stays exact; both modes and indptr dtypes
+    big_degs = [400_000, 100_000, 3000, 1025, 1024, 300, 5, 0] + list(wrng.integers(0, 80, 40))
+    n_b = len(big_degs) + 4
+    b_dst = np.repeat(np.arange(len(big_degs)), big_degs)
+    b_w = np.abs(wrng.standard_normal(len(b_dst))).astype(np.float32)
+    b_w[wrng.random(len(b_w)) < 0.1] = 0
+    bhg = HostGraph.from_coo(wrng.integers(0, n_b, len(b_dst)), b_dst, n_b, probs=b_w)
+    b_seeds = np.concatenate([np.arange(len(big_degs)), np.zeros(6, np.int64),
+                              wrng.integers(0, n_b, 30)]).astype(np.int32)
+    b_seeds[5::9] = INVALID_ID
+    b_st = torch.from_numpy(b_seeds).to(cuda)
+    big_rows = {"degrees": [400_000, 100_000, 3000, 1025, 1024], "max_degree": bhg.max_degree}
+    for replace in (False, True):
+        key = prng.random_keys(wgen, (len(b_seeds), 15) if replace else (len(b_seeds),), cuda)
+        bg = bhg.to_device(cuda)
+        want = sampling.sample_biased_plain(bg, b_st, 15, replace, key)
+        n_big = 0
+        for ip_dtype in (np.int32, np.int64):
+            bg = HostGraph(indptr=bhg.indptr.astype(ip_dtype), indices=bhg.indices, probs=bhg.probs).to_device(cuda)
+            for md in (bhg.max_degree, 1024, 2048):
+                n_big += compare_weighted(
+                    f"K7 400,000-edge row {ip_dtype.__name__} max_degree={md} replace={replace}",
+                    sampling.sample_biased(dataclasses.replace(bg, max_degree=md), b_st, 15, replace, key), want,
+                    None if replace else k7_tie(bhg.indptr.astype(np.int64), bhg.probs, b_seeds, key, 15))
+        check(bool(want.mask[0].any()), f"K7 400,000-edge row replace={replace}: took nothing")
+        w_ties["K7"] += n_big
+        big_rows[f"{'replace_' if replace else ''}near_tie_rows"] = n_big
+    torch.cuda.synchronize()
     for fn in (sampling.sample_biased, sampling.sample_biased_alias):  # an edgeless graph launches nothing
         before = fn.launches
         eg0 = HostGraph(indptr=np.zeros(5, np.int32), indices=np.zeros(0, np.int32),
@@ -1293,7 +1347,7 @@ def main() -> int:
 
     rkgen = torch.Generator(device=cuda).manual_seed(14)
     k7_hops, k8_hops = [], []
-    k7_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
+    k7_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "replace_ms", "replace_device_ms"), 0.0)
     k8_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
     ip_ptr, ip_sz = graph.indptr.data_ptr(), graph.indptr.element_size()
     for i, (blk, kk) in enumerate(zip(blocks_w, reversed(FAN_OUT))):
@@ -1305,9 +1359,10 @@ def main() -> int:
         lo = graph.indptr[safe_s].long()
         dg = torch.where(valid, graph.indptr[safe_s + 1].long() - lo, 0)
         ptr_sec = sectors(ip_ptr, ip_sz, torch.cat([safe_s[valid], safe_s[valid] + 1]))
-        # K7: both modes checked, the main path's (without replacement) timed
+        # K7: both modes checked and timed
+        keys7 = {}
         for replace in (True, False):
-            key7 = prng.random_keys(rkgen, (B, kk) if replace else (B,), cuda)
+            key7 = keys7[replace] = prng.random_keys(rkgen, (B, kk) if replace else (B,), cuda)
             got7 = sampling.sample_biased(graph_k7, s_hop, kk, replace, key7)
             n7 = compare_weighted(f"K7 hop {i} replace={replace}", got7,
                                   sampling.sample_biased_plain(graph_k7, s_hop, kk, replace, key7),
@@ -1319,8 +1374,11 @@ def main() -> int:
         hop7 = {"hop": i, "B": B, "k": kk, "near_tie_rows": n7, "valid_slots": int(got7.mask.sum()),
                 "edges_read": int(dg.sum()), "bytes": bytes7, "bound_ms": bytes7 / HBM_BYTES_PER_S * 1e3,
                 "ms": cuda_time_ms(lambda: sampling.sample_biased(graph_k7, s_hop, kk, False, key7)),
-                "device_ms": device_ms(lambda: sampling.sample_biased(graph_k7, s_hop, kk, False, key7),
-                                             "sample_biased_topk_kernel"),
+                "device_ms": device_ms_per_call(lambda: sampling.sample_biased(graph_k7, s_hop, kk, False, key7),
+                                                "k7_"),
+                "replace_ms": cuda_time_ms(lambda: sampling.sample_biased(graph_k7, s_hop, kk, True, keys7[True])),
+                "replace_device_ms": device_ms_per_call(
+                    lambda: sampling.sample_biased(graph_k7, s_hop, kk, True, keys7[True]), "k7_"),
                 "plain_ms": cuda_time_ms(lambda: sampling.sample_biased_plain(graph_k7, s_hop, kk, False, key7),
                                          iters=3, warmup=1)}
         # K8: both modes checked, without replacement timed
@@ -1369,17 +1427,73 @@ def main() -> int:
                 acc[key_] += hop[key_]
         k7_hops.append(hop7)
         k8_hops.append(hop8)
+    # K7 on a hop whose 64 seeds are all the longest row (226,746 edges), both
+    # modes: its time should follow its 14.5M edges, not its longest row.
+    # Bound: the row's weights read once (its sectors), the picks' indices,
+    # seeds, keys and outputs; edge_weights_ms: every edge's weight read
+    # from memory, as if no seed repeated
+    hub_node = int(np.argmax(deg64))
+    s_hub = torch.full((64,), hub_node, dtype=torch.int32, device=cuda)
+    hub_lo = graph.indptr[s_hub.long()].long()
+    hub_dg = graph.indptr[s_hub.long() + 1].long() - hub_lo
+    k7_hub = {"B": 64, "k": 15, "edges": int(hub_dg.sum()), "longest_row": int(deg64.max())}
+    for replace in (False, True):
+        key_h = prng.random_keys(rkgen, (64, 15) if replace else (64,), cuda)
+        got_h = sampling.sample_biased(graph_k7, s_hub, 15, replace, key_h)
+        n_h = compare_weighted(f"K7 all-hub hop replace={replace}", got_h,
+                               sampling.sample_biased_plain(graph_k7, s_hub, 15, replace, key_h),
+                               None if replace else k7_tie(indptr64, probs_np, s_hub.cpu().numpy(), key_h, 15))
+        check(positive_only(s_hub, got_h), f"K7 all-hub hop replace={replace}: drew a zero-weight edge")
+        tag = "replace_" if replace else ""
+        k7_hub[f"{tag}near_tie_rows"] = n_h
+        k7_hub[f"{tag}ms"] = cuda_time_ms(lambda: sampling.sample_biased(graph_k7, s_hub, 15, replace, key_h))
+        k7_hub[f"{tag}device_ms"] = device_ms_per_call(
+            lambda: sampling.sample_biased(graph_k7, s_hub, 15, replace, key_h), "k7_")
+        if not replace:
+            pos_h, m_h = sampling.sample_biased_positions(graph_k7, s_hub, 15, False, key_h)
+            hub_bytes = (span_sectors(probs_dev.data_ptr(), 4, hub_lo[:1], hub_dg[:1])
+                         + sectors(graph.indices.data_ptr(), 4, pos_h[m_h])
+                         + sectors(ip_ptr, ip_sz, torch.tensor([hub_node, hub_node + 1], device=cuda))) * 32 \
+                + 64 * (4 + 8) + 64 * 15 * 5
+            k7_hub["bytes"] = hub_bytes
+            k7_hub["bound_ms"] = hub_bytes / HBM_BYTES_PER_S * 1e3
+            k7_hub["edge_weights_ms"] = k7_hub["edges"] * 4 / HBM_BYTES_PER_S * 1e3
+    # no K7 call synchronizes: a hop with rows above the short-row limit (a
+    # workspace, three kernels), both modes, under the sync debug mode
+    s_sync, k_sync = blocks_w[1].seeds, tuple(reversed(FAN_OUT))[1]
+    sync_keys = {r: prng.random_keys(rkgen, (s_sync.shape[0], k_sync) if r else (s_sync.shape[0],), cuda)
+                 for r in (False, True)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r in (False, True):
+            sampling.sample_biased(graph_k7, s_sync, k_sync, r, sync_keys[r])
+        k7_sync = None
+    except RuntimeError as err:
+        k7_sync = str(err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(k7_sync is None, f"a K7 call synchronized: {k7_sync}")
     k7 = {"name": "sample_biased", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
           "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:671",
-          "max_abs_err": 0.0, **k7_sum, "bound_by": "bytes", "library_ms": None}
+          "max_abs_err": 0.0, **k7_sum, "bound_by": "bytes", "library_ms": None,
+          "launches_count": "sample_biased calls; a call launches 1 kernel when graph.max_degree <= 1024 "
+          "(the host tier's staged rows, deg_cap 128), else 3 without replacement and 2 with it; "
+          "device_ms sums every kernel of a call",
+          "hops": [{key_: h[key_] for key_ in ("hop", "B", "k", "edges_read", "ms", "device_ms", "bound_ms",
+                                               "replace_ms", "replace_device_ms")} for h in k7_hops],
+          "all_hub": k7_hub}
     k8 = {"name": "sample_biased_alias", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
           "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:764",
           "max_abs_err": 0.0, **k8_sum, "bound_by": "bytes", "library_ms": None}
     emit({"phase": "kernels_biased", "times_are": "sums over the three hops of one weighted request "
-          "(without replacement; both modes checked)", "k7_hops": k7_hops, "k8_hops": k8_hops,
-          "edge_rows": w_edge_rows, "near_tie_rows": w_ties, "exact_but_near_ties": True,
+          "(ms, device_ms, plain_ms without replacement; replace_ms, replace_device_ms with it; both modes "
+          "checked)", "k7_hops": k7_hops, "k8_hops": k8_hops,
+          "edge_rows": w_edge_rows, "k7_big_rows": big_rows, "near_tie_rows": w_ties, "exact_but_near_ties": True,
           "zero_weight_edges_drawn": 0, "library": "none: no one PyTorch call samples a weighted CSC graph",
-          "k7": {k: k7[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms")},
+          "k7_all_hub": k7_hub, "k7_synchronized": False,
+          "k7": {k: k7[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms", "replace_ms", "replace_device_ms")},
           "k8": {k: k8[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms")}, **card})
 
     # ---- 4. K1, K2 and K3 against their plain versions --------------------
@@ -2665,11 +2779,18 @@ def main() -> int:
         check(hop_launch["sample_biased"] == (st_g.count > 0 and st_g.graph.num_edges > 0)
               and hop_launch["sample_biased_alias"] == int(hot_alias),
               f"host_tier_biased hop {i}: launches {hop_launch}")
+        k7_staged = {}
+        if hop_launch["sample_biased"]:  # K7 alone on the staged rows, as the hop calls it
+            st_seeds, st_key_c = torch.arange(st_g.count, dtype=torch.int32, device=cuda), stg_key.to(cuda)
+            k7_staged = {"k7_ms": cuda_time_ms(lambda: sampling.sample_biased(st_g.graph, st_seeds, kk, False, st_key_c)),
+                         "k7_device_ms": device_ms_per_call(
+                             lambda: sampling.sample_biased(st_g.graph, st_seeds, kk, False, st_key_c), "k7_"),
+                         "staged_max_degree": st_g.graph.max_degree}
         w_hop_rows.append({"hop": i, "seeds": L, "hot_rows": int((loc_c != INVALID_ID).sum()),
                            "staged_rows": st_c.count, "hub_rows": int(st_c.is_pre.sum()),
                            "staged_edges": st_c.graph.num_edges, "presample_ms": st_c.presample_s * 1e3,
                            "near_tie_rows": len(bad), "k7": hop_launch["sample_biased"],
-                           "k8": hop_launch["sample_biased_alias"]})
+                           "k8": hop_launch["sample_biased_alias"], **k7_staged})
         rl = unique_and_relabel(torch.from_numpy(seeds_h), nb_c.ids, nb_c.mask)
         seeds_h, mask_h = rl.frontier.numpy(), rl.frontier_mask.numpy()
     del chk_stores
@@ -3396,7 +3517,8 @@ def main() -> int:
           "sessions_incomplete": profile_device.sessions_incomplete,
           "min_kept_share": profile_device.min_kept_share, "launches_seen": profile_device.launches_seen,
           **card})
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k, k7, k8)]})
+    emit({"kernels": [{**{k: kern[k] for k in keys}, **{k: kern[k] for k in ("launches_count", "hops", "all_hub") if k in kern}}
+                      for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k, k7, k8)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -161,6 +161,7 @@ int launch_sample_uniform(const void* indptr, const int32_t* indices, const int3
 }
 
 
+
 // ---------------------------------------------------------------------------
 // K7 and K8: weighted sampling.
 //
@@ -186,23 +187,75 @@ int launch_sample_uniform(const void* indptr, const int32_t* indices, const int3
 // every seed row is read once (its weight, 4 bytes; the k picks' indices
 // after), with the seeds, keys and indptr pairs, and ids and mask written
 // once: a hop reads the distinct 32-byte sectors of probs that its rows
-// span, so its time grows with the frontier's degree, not with k.  The key
-// (two hashes, a double log, a division) is ~100 operations an edge, far
-// below the card's rate.  Design: one warp per seed row.  Lanes take 32
-// consecutive edges at a time (coalesced weight loads) and compute their
-// keys; a ballot finds the lanes whose key beats the current k-th, and
-// those are inserted in lane (offset) order into a sorted list of k keys
-// and offsets in shared memory (the warp counts the entries that beat the
-// key and shifts the tail by one).  After the first k edges only a record
-// key enters: ~k ln(deg / k) insertions a row, and past the first chunks
-// most edges are ruled out by a fast float log (cannot_beat) before the
-// exact key's double log is taken.  A warp's chunks are
-// serial, so a row above kLongRow edges (a hub of the power-law graph has
-// 226,746) is shared by the 16 warps of its block, each with its own list,
-// and warp 0 merges the lists.  With replacement each lane owns draws
-// t = lane, lane + 32, ...: it sums the row chunk by chunk in the plain
-// version's order (the lanes read the same addresses, one broadcast) and
-// walks it again to its target: O(deg) a draw, off the main path.
+// span, so its time grows with the frontier's edges (the sum of its rows'
+// degrees), not with k and not with its longest row.  The key (two hashes,
+// a double log, a division) is ~100 operations an edge, far below the
+// card's rate.
+//
+// Design: the work is cut by the frontier's edges, not by its rows.  A
+// call launches up to three kernels on the caller's stream and reads
+// nothing back:
+// 1. k7_rows_kernel: one warp per seed row of at most kShortRow edges.
+//    Without replacement, lanes take 32 consecutive edges at a time
+//    (coalesced weight loads) and compute their keys; a ballot finds the
+//    lanes whose key beats the current k-th, and those are inserted in lane
+//    (offset) order into a sorted list of k keys and offsets in shared
+//    memory.  After the first k edges only a record key enters, and most
+//    edges are ruled out by a fast float log (cannot_beat) before the exact
+//    key's double log is taken.  When the graph's max_degree exceeds
+//    kShortRow, block 0 meanwhile compacts the longer rows in row order and
+//    scans their degrees: long row j owns the units [P_j, P_j + deg_j) of
+//    one line of U = sum(deg_j) units, an edge a unit.
+// 2. k7_slices_kernel (without replacement): W warps (kSliceWarpsPerSM an
+//    SM) cut that line into ranges of Lu = max(kMinPiece, U / W,
+//    maxdeg / (kMaxPieces - 1)) units, one a warp, regardless of row
+//    boundaries, so every warp reads the same number of weights whatever
+//    the rows' lengths.  A warp walks its range row by row as kernel 1
+//    walks a row; a row wholly inside it is finished there, and the piece
+//    of a row that crosses a range boundary (only its first and last row
+//    can) leaves its list, packed, in one of the warp's two slots of the
+//    workspace.  The pieces of one row share a lower bound of the row's
+//    k-th key, an atomicMax on the key's order-preserving bits: the k-th
+//    of a full list is the k-th of a subset of the row, so no edge whose
+//    key is below it can be taken, and the fast-log filter and the ballot
+//    skip such edges.  This is the threshold, not a radix select over the
+//    key bits: it keeps the one pass over the weights that the bound
+//    counts, where a select reads and keys every edge once more per pass.
+// 3. k7_merge_kernel: one warp per split row (the warp whose range holds
+//    the row's first edge) merges the lists of its at most kMaxPieces
+//    pieces by k rounds of a warp-wide maximum over the lists' heads, key
+//    bits and offset packed in 64 bits so that the maximum is lax.top_k's
+//    order, and writes the picks in that order.
+// Under a strict total order the top-k of a union is the top-k of the
+// union of the parts' top-ks, and a part's list keeps every entry of the
+// row's top-k that it holds (an entry leaves a list only for k entries
+// that beat it, or is skipped only below the shared bound), so any split
+// gives the whole row's picks.
+// With replacement, kernel 1 takes its short rows one warp each (a lane
+// sums a chunk; the warp folds the chunk sums in order into a table of
+// before values), and 2'. k7_cdf_long_kernel takes the long rows, a block
+// each from a device-side queue: its threads sum the row's chunks, one
+// thread a chunk, through a shared tile that keeps the loads coalesced;
+// one thread folds the chunk sums in order into the before values and the
+// total; each draw then scans the chunk sums for its chunk (a warp ballot
+// over 32 chunks a step: a binary search would assume that the float
+// condition local >= 0 && sum > local changes once along the row, which
+// rounding does not promise) and walks only that chunk: O(#chunks + 256)
+// a draw, where the walk from the row's start was O(deg).  The with-
+// replacement fold is sequential and not associative, so its chunk sums
+// are held per block (in shared memory up to kCdfSmemChunks, else
+// ceil(max_degree / 256) of them in the workspace), not per frontier.
+// graph.max_degree sizes the workspace and picks the launch, but a row
+// longer than it promised (the field understated) is still exact: without
+// replacement the cut reads the rows' own degrees (or, below kShortRow,
+// kernel 1 takes every row), and with replacement such a row's draws take
+// its chunks with no table (draw_untabled), at O(deg) a draw.
+// Workspace (from the caller, dg_sample_biased_workspace bytes; none when
+// max_degree <= kShortRow): the compacted long rows (B entries of row,
+// start and units); without replacement, per slice warp a shared bound on
+// a 128-byte line (a split row's, at its first warp), a first row and two
+// slots of k packed entries; with replacement, each block's chunk sums and
+// before values.
 //
 // K8 dg_sample_biased_alias computes ops/sampling.py sample_biased_alias
 // (:764-895, window None) and sample_biased_alias_plain, from the Walker
@@ -233,9 +286,34 @@ constexpr int kMaxK = 1024;
 constexpr int kChunk = 256;  // the CDF's chunk (sample_biased's chunk=256)
 constexpr int kSmemBudget = 48 * 1024;
 constexpr int kMaxWarps = 8;
-constexpr int kTopkWarps = 16;    // K7's block: the warps that share a long row
-constexpr int32_t kLongRow = 1024;  // longer rows are shared by a block
-constexpr int kUnroll = 4;          // K7's chunks loaded and keyed together
+constexpr int kUnroll = 4;               // K7's 32-edge steps whose weights load together (a group)
+constexpr int32_t kShortRow = 1024;      // longer rows are cut across the grid
+constexpr int kRowWarps = 16;            // k7_rows_kernel's block, at most
+constexpr int kSliceWarps = 8;           // k7_slices_kernel's block, at most
+constexpr int kSliceWarpsPerSM = 32;     // W = the SMs times this
+constexpr int64_t kMinPiece = 1024;      // a slice warp's range, at least
+constexpr int kPiecesPerLane = 8;        // a merge warp's lane holds this many lists
+constexpr int kMaxPieces = 32 * kPiecesPerLane;  // a long row's pieces, at most
+constexpr int kMergeWarps = 8;
+constexpr int kWarpChunks = kShortRow / kChunk;  // a short row's chunks: the warp CDF's table
+constexpr int kCdfWarps = 8;             // k7_cdf_long_kernel's block
+constexpr int kCdfBlocksPerSM = 4;
+constexpr int kCdfSmemChunks = 1536;     // a long row's chunk sums in shared memory, up to
+constexpr unsigned kOrdNegInf = 0x007fffffu;  // ord(-inf)
+constexpr int kBoundStride = 32;         // a shared bound a 128-byte line: its warps contend alone
+// The register list's two choices, settable at build time (-D) so that
+// scripts/bench_k7.py --variants can time them against the shared list
+#ifndef DG_K7_REG_MAX_K
+#define DG_K7_REG_MAX_K 32  // k up to this takes the register list (0: the shared list for every k)
+#endif
+#ifndef DG_K7_BATCH_INSERT
+#define DG_K7_BATCH_INSERT 8  // 33: no batch insert
+#endif
+constexpr int kRegMaxK = DG_K7_REG_MAX_K;
+static_assert(kRegMaxK >= 0 && kRegMaxK <= 32, "the register list holds at most a lane an entry");
+constexpr int kBatchInsert = DG_K7_BATCH_INSERT;  // a step's candidates merged as one sorted batch, from
+constexpr int kScanBatch = 8;            // rows whose loads the scan keeps in flight
+constexpr size_t kScanSmem = 32 * (sizeof(int) + sizeof(long long) + sizeof(int));  // k7_scan_long's
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -251,17 +329,33 @@ __device__ __forceinline__ float gumbel_key(uint32_t bits, float w) {
   return __fdiv_rn((float)log((double)bits_to_uniform(bits)), w);
 }
 
-// Whether an edge's Gumbel key surely cannot exceed thr, from the fast
-// __logf: its error is at most 2^-21.41 absolute on [0.5, 2] and 3 ulp
-// elsewhere (CUDA's documented bounds), the key's log is rounded once to
-// float and its division once, so the slack below (1e-6 absolute, 1e-6
-// relative to the log and to thr * w) covers every difference.  It only
-// skips the exact key of an edge that could not enter the list, so the
-// picks are those of the exact keys.
+// Whether an edge's Gumbel key is surely below thr, from the fast __logf:
+// its error is at most 2^-21.41 absolute on [0.5, 2] and 3 ulp elsewhere
+// (CUDA's documented bounds), the key's log is rounded once to float and
+// its division once, so the slack below (1e-6 absolute, 1e-6 relative to
+// the log and to thr * w) covers every difference.  It only skips the
+// exact key of an edge whose key is below thr, strictly, so an edge that
+// ties thr is still keyed and the picks are those of the exact keys.
 __device__ __forceinline__ bool cannot_beat(uint32_t bits, float w, float thr) {
   const float lgf = __logf(bits_to_uniform(bits));
-  const float bound = thr * w;  // -inf while the list is not full
+  const float bound = thr * w;  // -inf while there is no threshold
   return lgf + 1e-6f + 1e-6f * fabsf(lgf) + 1e-6f * fabsf(bound) < bound;
+}
+
+// Order-preserving unsigned bits of a float (no NaN here) and back.
+__device__ __forceinline__ unsigned float_to_ord(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float ord_to_float(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// A list entry packed so that a larger value beats a smaller one: the key's
+// order bits over the offset's complement (lax.top_k's order within a row);
+// every entry is > 0, so 0 marks an empty head.
+__device__ __forceinline__ unsigned long long pack_entry(float key, int32_t off) {
+  return ((unsigned long long)float_to_ord(key) << 32) | (0xffffffffu - (uint32_t)off);
 }
 
 template <typename IP>
@@ -319,41 +413,177 @@ __device__ __forceinline__ int list_insert(float* lk, int32_t* lo, int n, int k,
   return n < k ? n + 1 : n;
 }
 
-// One warp's pass over the chunks c0, c0 + cstep, ... of a row (32 edges a
-// chunk, a lane an edge), kUnroll chunks at a time: their weights are
-// loaded and their keys computed together (independent loads and logs in
-// flight; once the list is full, a key that cannot beat its k-th is not
-// computed exactly, cannot_beat), then chunk by chunk, in offset order, a
-// ballot finds the lanes
-// whose key beats the list's k-th and those are inserted in lane order (the
-// offsets of a pass increase, so a plain > suffices for the ballot).
-// Returns the list's n.
-__device__ __forceinline__ int topk_pass(const float* __restrict__ probs, int64_t start, int32_t deg,
-                                         uint32_t rk, int64_t n_edges, float* lk, int32_t* lo, int k,
-                                         int c0, int cstep, int lane) {
+// The weights of kUnroll 32-edge steps from offset first (0 from o1 on).
+__device__ __forceinline__ void step_weights(const float* __restrict__ probs, int64_t start, int32_t first,
+                                             int32_t o1, int64_t n_edges, int lane, float (&w)[kUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int32_t off = first + u * 32 + lane;
+    w[u] = off < o1 ? probs[clamp_pos(start + off, n_edges)] : 0.f;
+  }
+}
+
+// Whether an edge needs its exact key: a positive weight and a key not
+// surely below thr (cannot_beat).
+__device__ __forceinline__ bool needs_key(uint32_t bits, float w, float thr) {
+  return w > 0.f && !cannot_beat(bits, w, thr);
+}
+
+// A relaxed load of a shared bound (other warps raise it with atomicMax).
+__device__ __forceinline__ unsigned load_bound(const unsigned* bound) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(bound));
+  return v;
+}
+
+// A split row's shared lower bound of its k-th key: read it (lane 0, then
+// broadcast) into seen, which only rises, and return it as a float; -inf
+// for a row that is not shared (bound == nullptr).
+__device__ __forceinline__ float read_bound(const unsigned* bound, unsigned& seen, int lane) {
+  if (bound == nullptr) return neg_inf();
+  unsigned b = 0;
+  if (lane == 0) b = load_bound(bound);
+  b = __shfl_sync(kFull, b, 0);
+  seen = b > seen ? b : seen;
+  return ord_to_float(seen);
+}
+
+// Raise the shared bound to a full list's k-th, if that is higher.
+__device__ __forceinline__ void raise_bound(unsigned* bound, unsigned& seen, float kth, int lane) {
+  const unsigned own = float_to_ord(kth);
+  if (own > seen) {
+    if (lane == 0) atomicMax(bound, own);
+    seen = own;
+  }
+}
+
+// One warp's pass over the edges [o0, o1) of a row, 32 edges a step (a
+// lane an edge), the weights of kUnroll steps loaded together: step by
+// step, in offset order, each lane keys its edge against the threshold
+// (needs_key, then the exact key), a ballot finds the lanes whose key
+// beats the list's k-th, and those are inserted in lane order (the
+// offsets of a pass increase, so a plain > suffices).  The threshold is the list's k-th once it is full,
+// raised to *bound when the row is shared with other warps (bound !=
+// nullptr): the pass reads it each kUnroll steps, skips keys below it and
+// raises it to its own k-th.  The list is sorted in shared memory (lk, lo:
+// list_insert), for any k.  Returns the list's n.
+__device__ __forceinline__ int topk_range(const float* __restrict__ probs, int64_t start, int32_t o0,
+                                          int32_t o1, uint32_t rk, int64_t n_edges, float* lk,
+                                          int32_t* lo, int k, int lane, unsigned* bound) {
   int n = 0;
-  for (int32_t first = c0 * 32; first < deg; first += kUnroll * cstep * 32) {
-    const float thr = n == k ? lk[k - 1] : neg_inf();  // only rises within the chunks
-    float key[kUnroll];
+  unsigned seen = kOrdNegInf;  // the shared bound as last read or raised
+  for (int32_t first = o0; first < o1; first += kUnroll * 32) {
+    const float shared_thr = read_bound(bound, seen, lane);
+    float w[kUnroll];
+    step_weights(probs, start, first, o1, n_edges, lane, w);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int32_t off = first + u * cstep * 32 + lane;
-      const float w = off < deg ? probs[clamp_pos(start + off, n_edges)] : 0.f;
-      const uint32_t bits = mix32(rk ^ mix32((uint32_t)off));
-      key[u] = w > 0.f && !cannot_beat(bits, w, thr) ? gumbel_key(bits, w) : neg_inf();
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int32_t base = first + u * cstep * 32;
-      unsigned cand = __ballot_sync(kFull, key[u] > (n == k ? lk[k - 1] : neg_inf()));
+      const int32_t base = first + u * 32;
+      const float own = n == k ? lk[k - 1] : neg_inf();
+      const uint32_t bits = mix32(rk ^ mix32((uint32_t)(base + lane)));
+      const bool need = needs_key(bits, w[u], fmaxf(own, shared_thr));
+      if (!__any_sync(kFull, need)) continue;  // most steps once the list is full
+      const float key = need ? gumbel_key(bits, w[u]) : neg_inf();
+      unsigned cand = __ballot_sync(kFull, key > own && key >= shared_thr);
       while (cand) {
         const int src = __ffs(cand) - 1;
         cand &= cand - 1;
-        n = list_insert(lk, lo, n, k, __shfl_sync(kFull, key[u], src), base + src, lane);
+        n = list_insert(lk, lo, n, k, __shfl_sync(kFull, key, src), base + src, lane);
       }
     }
+    if (bound != nullptr && n == k) raise_bound(bound, seen, lk[k - 1], lane);
   }
   return n;
+}
+
+// A warp's 32 packed entries (one a lane) sorted descending across the
+// lanes: a bitonic network of 15 compare-exchange stages.
+__device__ __forceinline__ unsigned long long sort_desc(unsigned long long v, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(kFull, v, stride);
+      const bool keep_max = ((lane & size) == 0) == ((lane & stride) == 0);
+      v = keep_max ? (v > o ? v : o) : (v < o ? v : o);
+    }
+  }
+  return v;
+}
+
+// The 32 largest of two descending lane-sorted sequences, descending: the
+// elementwise maximum of one and the other reversed is bitonic, and five
+// half-cleaner stages sort it.
+__device__ __forceinline__ unsigned long long merge_sorted(unsigned long long a, unsigned long long b, int lane) {
+  const unsigned long long rb = __shfl_sync(kFull, b, 31 - lane);
+  unsigned long long v = a > rb ? a : rb;
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(kFull, v, stride);
+    v = (lane & stride) == 0 ? (v > o ? v : o) : (v < o ? v : o);
+  }
+  return v;
+}
+
+// topk_range for k <= kRegMaxK, built for latency: the list lives in registers,
+// lane j holding the j-th entry packed (pack_entry; 0 is empty) and all 32
+// lanes kept sorted, so an insertion is one ballot for its position and one
+// shuffle up, and a step with kBatchInsert candidates or more is sorted
+// (sort_desc) and merged into the list (merge_sorted) in one go; a step
+// whose lanes all fall below the threshold costs its hashes and fast logs
+// alone; the next kUnroll steps' weights and the shared bound's next value
+// are loaded while a group is ranked.  The same picks as topk_range.
+// Returns n; lv is the lane's entry.
+__device__ __forceinline__ int topk_range_reg(const float* __restrict__ probs, int64_t start, int32_t o0,
+                                              int32_t o1, uint32_t rk, int64_t n_edges, int k, int lane,
+                                              unsigned* bound, unsigned long long& lv) {
+  lv = 0ull;
+  unsigned long long kth = 0ull;  // lane k - 1's entry (the same in every lane), 0 until full
+  float kth_key = neg_inf();      // its key
+  unsigned seen = kOrdNegInf, next_bound = kOrdNegInf;
+  if (bound != nullptr && lane == 0) next_bound = load_bound(bound);
+  float w[kUnroll];
+  step_weights(probs, start, o0, o1, n_edges, lane, w);
+  for (int32_t first = o0; first < o1; first += kUnroll * 32) {
+    float shared_thr = neg_inf();
+    if (bound != nullptr) {  // read a group ago; the next read is in flight meanwhile
+      const unsigned b = __shfl_sync(kFull, next_bound, 0);
+      seen = b > seen ? b : seen;
+      if (lane == 0 && first + kUnroll * 32 < o1) next_bound = load_bound(bound);
+      shared_thr = ord_to_float(seen);
+    }
+    float wn[kUnroll];
+    step_weights(probs, start, first + kUnroll * 32, o1, n_edges, lane, wn);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int32_t off = first + u * 32 + lane;
+      const uint32_t bits = mix32(rk ^ mix32((uint32_t)off));
+      const bool need = needs_key(bits, w[u], fmaxf(kth_key, shared_thr));
+      if (!__any_sync(kFull, need)) continue;  // most steps once the list is full
+      const float key = need ? gumbel_key(bits, w[u]) : neg_inf();
+      const unsigned long long cv = key > neg_inf() && key >= shared_thr ? pack_entry(key, off) : 0ull;
+      unsigned cand = __ballot_sync(kFull, cv > kth);
+      if (__popc(cand) >= kBatchInsert) {
+        lv = merge_sorted(lv, sort_desc(cv > kth ? cv : 0ull, lane), lane);
+        cand = 0;
+      }
+      while (cand) {
+        const int src = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const unsigned long long c = __shfl_sync(kFull, cv, src);
+        const unsigned long long up = __shfl_up_sync(kFull, lv, 1);
+        const int p = __popc(__ballot_sync(kFull, lv > c));
+        if (p < k) lv = lane == p ? c : (lane > p ? up : lv);
+      }
+      kth = __shfl_sync(kFull, lv, k - 1);
+      kth_key = kth ? ord_to_float((unsigned)(kth >> 32)) : neg_inf();
+    }
+    if (bound != nullptr && kth != 0ull) raise_bound(bound, seen, kth_key, lane);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) w[u] = wn[u];
+  }
+  const int n = __popc(__ballot_sync(kFull, lv != 0ull));
+  return n < k ? n : k;
 }
 
 __device__ __forceinline__ void topk_write(const int32_t* __restrict__ indices, int64_t start,
@@ -367,117 +597,605 @@ __device__ __forceinline__ void topk_write(const int32_t* __restrict__ indices, 
   }
 }
 
-// K7 without replacement: the Gumbel top-k of each row.  A block takes a
-// group of as many rows as it has warps: each warp samples its own row if
-// it has at most kLongRow edges; then the group's long rows, one after
-// another, are shared by all the block's warps (warp w takes chunks w,
-// w + warps, ...; each keeps its own list), and warp 0 merges the other
-// warps' lists into its own.  The top-k under a strict total order is the
-// top-k of the union of the parts' top-ks, so the result is the same.
-template <typename IP>
-__global__ void __launch_bounds__(kTopkWarps * 32)
-sample_biased_topk_kernel(const IP* __restrict__ indptr, const int32_t* __restrict__ indices,
-                          const float* __restrict__ probs, const int32_t* __restrict__ seeds,
-                          const int64_t* __restrict__ keys, int32_t* __restrict__ ids,
-                          uint8_t* __restrict__ mask, int64_t B, int k, int64_t n_nodes,
-                          int64_t n_edges) {
-  extern __shared__ float smem_f[];
-  __shared__ int s_long[kTopkWarps];
-  __shared__ int s_n[kTopkWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
-  float* lk = smem_f + (size_t)warp * 2 * k;       // keys, descending
-  int32_t* lo = reinterpret_cast<int32_t*>(lk + k);  // their offsets
-  for (int64_t g0 = (int64_t)blockIdx.x * wpb; g0 < B; g0 += (int64_t)gridDim.x * wpb) {
-    const int64_t b = g0 + warp;
-    bool is_long = false;
-    if (b < B) {
-      int64_t start;
-      int32_t deg;
-      bool valid;
-      row_extent(indptr, seeds[b], n_nodes, start, deg, valid);
-      is_long = deg > kLongRow;
-      if (!is_long) {
-        const int n = topk_pass(probs, start, deg, (uint32_t)keys[b], n_edges, lk, lo, k, 0, 1, lane);
-        topk_write(indices, start, n_edges, lo, n, k, ids, mask, b, lane);
-      }
-    }
-    if (lane == 0) s_long[warp] = is_long;
-    __syncthreads();
-    for (int r = 0; r < wpb; ++r) {
-      if (!s_long[r]) continue;  // the same in every warp
-      const int64_t br = g0 + r;
-      int64_t start;
-      int32_t deg;
-      bool valid;
-      row_extent(indptr, seeds[br], n_nodes, start, deg, valid);
-      const int n = topk_pass(probs, start, deg, (uint32_t)keys[br], n_edges, lk, lo, k, warp, wpb, lane);
-      if (lane == 0) s_n[warp] = n;
-      __syncthreads();
-      if (warp == 0) {
-        int m = n;
-        for (int w = 1; w < wpb; ++w) {
-          const float* wk = smem_f + (size_t)w * 2 * k;
-          const int32_t* wo = reinterpret_cast<const int32_t*>(wk + k);
-          for (int i = 0; i < s_n[w]; ++i) {
-            if (m == k && !beats(wk[i], wo[i], lk[k - 1], lo[k - 1])) break;  // the rest lose too
-            m = list_insert(lk, lo, m, k, wk[i], wo[i], lane);
-          }
-        }
-        topk_write(indices, start, n_edges, lo, m, k, ids, mask, br, lane);
-      }
-      __syncthreads();
-    }
-    __syncthreads();  // every list is the next group's
+// topk_write for a register list: lane j writes slot j.
+__device__ __forceinline__ void topk_write_reg(const int32_t* __restrict__ indices, int64_t start,
+                                               int64_t n_edges, unsigned long long lv, int n, int k,
+                                               int32_t* __restrict__ ids, uint8_t* __restrict__ mask,
+                                               int64_t b, int lane) {
+  if (lane < k) {
+    const bool take = lane < n;
+    const int32_t off = (int32_t)(0xffffffffu - (uint32_t)lv);
+    ids[b * k + lane] = take ? indices[clamp_pos(start + off, n_edges)] : kInvalid;
+    mask[b * k + lane] = take;
   }
 }
 
-// K7 with replacement: the chunked inverse CDF, one warp a row, a lane a
-// draw (t = lane, lane + 32, ...).
+// The walk of draw t's chunk: the first edge of [i0, i1) whose running sum
+// from 0 exceeds local (weights loaded 8 ahead of the dependent adds).
+__device__ __forceinline__ bool walk_chunk(const float* __restrict__ w, int32_t i0, int32_t i1,
+                                           float local, int32_t& pick) {
+  float cs = 0.f;
+  for (int32_t i = i0; i < i1; i += 8) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = i + q < i1 ? w[i + q] : 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      cs = __fadd_rn(cs, v[q]);
+      if (i + q < i1 && cs > local) {
+        pick = i + q;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// The sum of chunk c of a row of deg edges, added from its first edge.
+__device__ __forceinline__ float chunk_sum(const float* __restrict__ w, int32_t deg, int32_t c) {
+  const int32_t i1 = deg - c * kChunk < kChunk ? deg : c * kChunk + kChunk;
+  float s = 0.f;
+  for (int32_t i = c * kChunk; i < i1; ++i) s = __fadd_rn(s, w[i]);
+  return s;
+}
+
+// A row longer than graph.max_degree promised has no table: its draws are
+// taken with no table at the parent design's cost, O(deg) a draw, and the
+// same arithmetic.  row_total_warp: the row's total by one warp (lane l
+// sums chunks l, l + 32, ..., folded in order); draw_untabled: the first
+// chunk whose local target is >= 0 and below its sum, each summed anew,
+// and the walk of that chunk.
+__device__ float row_total_warp(const float* __restrict__ w, int32_t deg, int32_t nch, int lane) {
+  float total = 0.f;
+  for (int32_t c0 = 0; c0 < nch; c0 += 32) {
+    const float cs = c0 + lane < nch ? chunk_sum(w, deg, c0 + lane) : 0.f;
+    const int32_t m = nch - c0 < 32 ? nch - c0 : 32;
+    for (int32_t i = 0; i < m; ++i) total = __fadd_rn(total, __shfl_sync(kFull, cs, i));
+  }
+  return total;
+}
+
+__device__ bool draw_untabled(const float* __restrict__ w, int32_t deg, int32_t nch, float target,
+                              int32_t& pick) {
+  float before = 0.f;
+  for (int32_t c = 0; c < nch; ++c) {
+    const float cs = chunk_sum(w, deg, c);
+    const float local = __fsub_rn(target, before);
+    if (local >= 0.f && cs > local) {
+      const int32_t i1 = deg - c * kChunk < kChunk ? deg : c * kChunk + kChunk;
+      return walk_chunk(w, c * kChunk, i1, local, pick);
+    }
+    before = __fadd_rn(before, cs);
+  }
+  return false;
+}
+
+// K7 with replacement on one short row (at most kWarpChunks chunks, as the
+// graph's max_degree promises), by one warp: lane c sums chunk c, the warp
+// folds the sums in order into the total and a table of (sum, before) in
+// shared memory; each lane then takes draws t = lane, lane + 32, ...: the
+// first chunk of the table whose local target is >= 0 and below its sum,
+// and the walk of that chunk alone.  A longer row takes draw_untabled.
+__device__ __forceinline__ void cdf_row_warp(const float* __restrict__ probs,
+                                             const int32_t* __restrict__ indices,
+                                             const int64_t* __restrict__ keys, int32_t* __restrict__ ids,
+                                             uint8_t* __restrict__ mask, int64_t b, int64_t start,
+                                             int32_t deg, bool valid, int k, int64_t n_edges,
+                                             float* tab, int lane) {
+  const float* w = probs + start;
+  const int32_t nch = (deg + kChunk - 1) / kChunk;
+  const bool tabled = nch <= kWarpChunks;
+  float total = 0.f;
+  if (tabled) {
+    const float ct = lane < nch ? chunk_sum(w, deg, lane) : 0.f;
+    for (int c = 0; c < nch; ++c) {
+      const float cc = __shfl_sync(kFull, ct, c);
+      if (lane == 0) {
+        tab[c] = cc;
+        tab[kWarpChunks + c] = total;
+      }
+      total = __fadd_rn(total, cc);
+    }
+    __syncwarp();
+  } else {
+    total = row_total_warp(w, deg, nch, lane);
+  }
+  for (int t = lane; t < k; t += 32) {
+    const float target = __fmul_rn(bits_to_uniform((uint32_t)keys[b * k + t]), total);
+    bool found = false;
+    int32_t pick = 0;
+    for (int32_t c = 0; tabled && c < nch; ++c) {
+      const float local = __fsub_rn(target, tab[kWarpChunks + c]);
+      if (local >= 0.f && tab[c] > local) {
+        const int32_t i1 = deg - c * kChunk < kChunk ? deg : c * kChunk + kChunk;
+        found = walk_chunk(w, c * kChunk, i1, local, pick);
+        break;
+      }
+    }
+    if (!tabled) found = draw_untabled(w, deg, nch, target, pick);
+    const bool take = valid && total > 0.f && found;
+    ids[b * k + t] = take ? indices[clamp_pos(start + pick, n_edges)] : kInvalid;
+    mask[b * k + t] = take;
+  }
+  __syncwarp();  // the table is the next row's
+}
+
+// The long rows' line, shared by K7's kernels through the workspace.
+struct K7Header {
+  int64_t n_long;   // long rows (deg > kShortRow), compacted in row order
+  int64_t units;    // U: their edges
+  int64_t piece;    // Lu: a slice warp's range of units
+  int64_t workers;  // slice warps with a range: ceil(U / Lu) <= W
+  unsigned queue;   // the next long row of k7_cdf_long_kernel
+};
+
+struct K7Work {
+  K7Header* hdr;
+  int32_t* lrow;                  // [B] the long rows' row index b
+  int64_t* lstart;                // [B] their start in the edge list
+  int64_t* lunits;                // [B + 1] their first unit P_j; lunits[n_long] = U
+  unsigned* bound;                // [W, kBoundStride] each split row's k-th-key bound, at its first warp
+  int32_t* first;                 // [W] each slice warp's first long row
+  int2* slot_hdr;                 // [2W] (long row, entries) of each warp's two slots
+  unsigned long long* slot_ent;   // [2W, k] their packed lists, descending
+  float* cdf;                     // [Gb, 2, nchmax] each block's chunk sums and befores (with replacement)
+  int64_t workers_max;            // W
+  int64_t nchmax;                 // ceil(max_degree / kChunk)
+};
+
+struct K7Layout {
+  size_t hdr = 0, lrow = 0, lstart = 0, lunits = 0, bound = 0, first = 0, slot_hdr = 0,
+         slot_ent = 0, cdf = 0, total = 0;
+  int64_t W = 0, Gb = 0, nchmax = 0, sms = 0;
+};
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    return 0;
+  return sms;
+}
+
+// The workspace's regions (256-byte aligned) for B rows, k, a graph whose
+// longest row has max_degree edges, and sms multiprocessors; none when no
+// row can be long.
+inline K7Layout k7_layout(int64_t B, int k, int64_t max_degree, int replace, int sms) {
+  K7Layout L;
+  L.sms = sms;
+  if (max_degree <= kShortRow) return L;
+  L.W = (int64_t)sms * kSliceWarpsPerSM;
+  L.Gb = (int64_t)sms * kCdfBlocksPerSM;
+  L.nchmax = (max_degree + kChunk - 1) / kChunk;
+  size_t off = 0;
+  auto take = [&off](size_t bytes) {
+    const size_t at = off;
+    off = (off + bytes + 255) / 256 * 256;
+    return at;
+  };
+  L.hdr = take(sizeof(K7Header));
+  L.lrow = take((size_t)B * sizeof(int32_t));
+  L.lstart = take((size_t)B * sizeof(int64_t));
+  L.lunits = take((size_t)(B + 1) * sizeof(int64_t));
+  if (replace) {
+    L.cdf = take((size_t)L.Gb * 2 * L.nchmax * sizeof(float));
+  } else {
+    L.bound = take((size_t)L.W * kBoundStride * sizeof(unsigned));
+    L.first = take((size_t)L.W * sizeof(int32_t));
+    L.slot_hdr = take((size_t)2 * L.W * sizeof(int2));
+    L.slot_ent = take((size_t)2 * L.W * k * sizeof(unsigned long long));
+  }
+  L.total = off;
+  return L;
+}
+
+inline K7Work k7_bind(const K7Layout& L, void* ws) {
+  char* p = static_cast<char*>(ws);
+  K7Work w;
+  w.hdr = reinterpret_cast<K7Header*>(p + L.hdr);
+  w.lrow = reinterpret_cast<int32_t*>(p + L.lrow);
+  w.lstart = reinterpret_cast<int64_t*>(p + L.lstart);
+  w.lunits = reinterpret_cast<int64_t*>(p + L.lunits);
+  w.bound = reinterpret_cast<unsigned*>(p + L.bound);
+  w.first = reinterpret_cast<int32_t*>(p + L.first);
+  w.slot_hdr = reinterpret_cast<int2*>(p + L.slot_hdr);
+  w.slot_ent = reinterpret_cast<unsigned long long*>(p + L.slot_ent);
+  w.cdf = reinterpret_cast<float*>(p + L.cdf);
+  w.workers_max = L.W;
+  w.nchmax = L.nchmax;
+  return w;
+}
+
+// The extents of rows [b, b + kScanBatch) below b1 (deg 0 past b1).
 template <typename IP>
-__global__ void sample_biased_cdf_kernel(const IP* __restrict__ indptr,
-                                         const int32_t* __restrict__ indices,
-                                         const float* __restrict__ probs,
-                                         const int32_t* __restrict__ seeds,
-                                         const int64_t* __restrict__ keys, int32_t* __restrict__ ids,
-                                         uint8_t* __restrict__ mask, int64_t B, int k,
-                                         int64_t n_nodes, int64_t n_edges) {
+__device__ __forceinline__ void scan_batch(const IP* __restrict__ indptr, const int32_t* __restrict__ seeds,
+                                           int64_t b, int64_t b1, int64_t n_nodes, int64_t (&start)[kScanBatch],
+                                           int32_t (&deg)[kScanBatch]) {
+  int32_t sd[kScanBatch];
+#pragma unroll
+  for (int q = 0; q < kScanBatch; ++q) sd[q] = b + q < b1 ? seeds[b + q] : kInvalid;
+#pragma unroll
+  for (int q = 0; q < kScanBatch; ++q) {
+    bool valid;
+    row_extent(indptr, sd[q], n_nodes, start[q], deg[q], valid);
+  }
+}
+
+// Block 0 of k7_rows_kernel when rows can be long: the long rows in row
+// order (thread t takes the rows [t R, t R + R)), their units by an
+// exclusive block scan, the slice warps' ranges and first rows, the shared
+// bounds at -inf and the queue at 0.
+template <typename IP>
+__device__ void k7_scan_long(const IP* __restrict__ indptr, const int32_t* __restrict__ seeds,
+                             int64_t B, int64_t n_nodes, int replace, K7Work w) {
+  __shared__ int s_cnt[32];
+  __shared__ long long s_sum[32];
+  __shared__ int s_max[32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nw = blockDim.x >> 5;
+  const int64_t R = (B + blockDim.x - 1) / blockDim.x;
+  const int64_t b0 = (int64_t)t * R < B ? (int64_t)t * R : B;
+  const int64_t b1 = b0 + R < B ? b0 + R : B;
+  int cnt = 0, mx = 0;
+  long long sum = 0;
+  for (int64_t b = b0; b < b1; b += kScanBatch) {  // a batch's loads in flight together
+    int32_t deg[kScanBatch];
+    int64_t start[kScanBatch];
+    scan_batch(indptr, seeds, b, b1, n_nodes, start, deg);
+#pragma unroll
+    for (int q = 0; q < kScanBatch; ++q) {
+      if (deg[q] > kShortRow) {
+        ++cnt;
+        sum += deg[q];
+        mx = deg[q] > mx ? deg[q] : mx;
+      }
+    }
+  }
+  // inclusive warp scans, then the warps' totals
+  int ci = cnt;
+  long long si = sum;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int cy = __shfl_up_sync(kFull, ci, d);
+    const long long sy = __shfl_up_sync(kFull, si, d);
+    if (lane >= d) {
+      ci += cy;
+      si += sy;
+    }
+  }
+  const int wmax = (int)__reduce_max_sync(kFull, (unsigned)mx);
+  if (lane == 31) {
+    s_cnt[warp] = ci;
+    s_sum[warp] = si;
+    s_max[warp] = wmax;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int c = lane < nw ? s_cnt[lane] : 0;
+    long long s = lane < nw ? s_sum[lane] : 0;
+    const int m = (int)__reduce_max_sync(kFull, (unsigned)(lane < nw ? s_max[lane] : 0));
+    for (int d = 1; d < 32; d <<= 1) {
+      const int cy = __shfl_up_sync(kFull, c, d);
+      const long long sy = __shfl_up_sync(kFull, s, d);
+      if (lane >= d) {
+        c += cy;
+        s += sy;
+      }
+    }
+    if (lane < nw) {  // inclusive over the warps
+      s_cnt[lane] = c;
+      s_sum[lane] = s;
+    }
+    if (lane == 0) s_max[0] = m;
+  }
+  __syncthreads();
+  const int64_t n_long = s_cnt[nw - 1];
+  const int64_t U = s_sum[nw - 1];
+  const int64_t maxdeg = s_max[0];
+  int64_t Lu = (U + w.workers_max - 1) / w.workers_max;
+  const int64_t by_row = (maxdeg + kMaxPieces - 2) / (kMaxPieces - 1);
+  Lu = Lu > kMinPiece ? Lu : kMinPiece;
+  Lu = Lu > by_row ? Lu : by_row;
+  const int64_t workers = (U + Lu - 1) / Lu;
+  if (t == 0) {
+    w.hdr->n_long = n_long;
+    w.hdr->units = U;
+    w.hdr->piece = Lu;
+    w.hdr->workers = workers;
+    w.hdr->queue = 0;
+    w.lunits[n_long] = U;
+  }
+  int64_t j = (warp ? s_cnt[warp - 1] : 0) + ci - cnt;  // exclusive prefixes
+  int64_t P = (warp ? s_sum[warp - 1] : 0) + si - sum;
+  for (int64_t b = b0; b < b1; b += kScanBatch) {
+    int32_t deg[kScanBatch];
+    int64_t start[kScanBatch];
+    scan_batch(indptr, seeds, b, b1, n_nodes, start, deg);
+#pragma unroll
+    for (int q = 0; q < kScanBatch; ++q) {
+      if (deg[q] <= kShortRow) continue;
+      w.lrow[j] = (int32_t)(b + q);
+      w.lstart[j] = start[q];
+      w.lunits[j] = P;
+      if (!replace) {
+        w.bound[P / Lu * kBoundStride] = kOrdNegInf;  // its first warp's: one split row a warp
+        for (int64_t g = (P + Lu - 1) / Lu; g * Lu < P + deg[q]; ++g) w.first[g] = (int32_t)j;  // ranges starting here
+      }
+      ++j;
+      P += deg[q];
+    }
+  }
+}
+
+// K7, kernel 1: one warp per seed row of at most kShortRow edges (every
+// row when none is longer), and, when scan, block 0 compacts the long rows.
+template <typename IP>
+__global__ void __launch_bounds__(kRowWarps * 32, 2)
+k7_rows_kernel(const IP* __restrict__ indptr, const int32_t* __restrict__ indices,
+               const float* __restrict__ probs, const int32_t* __restrict__ seeds,
+               const int64_t* __restrict__ keys, int32_t* __restrict__ ids,
+               uint8_t* __restrict__ mask, int64_t B, int k, int64_t n_nodes, int64_t n_edges,
+               int replace, int scan, K7Work work) {
+  extern __shared__ float smem_f[];
+  if (scan && blockIdx.x == 0) {
+    k7_scan_long(indptr, seeds, B, n_nodes, replace, work);
+    return;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
-  for (int64_t b = (int64_t)blockIdx.x * wpb + warp; b < B; b += (int64_t)gridDim.x * wpb) {
+  const int64_t blk = blockIdx.x - (scan ? 1 : 0), nblk = gridDim.x - (scan ? 1 : 0);
+  float* lk = smem_f + (size_t)warp * (replace ? 2 * kWarpChunks : 2 * k);  // keys, descending
+  int32_t* lo = reinterpret_cast<int32_t*>(lk + k);                          // their offsets
+  for (int64_t b = blk * wpb + warp; b < B; b += nblk * wpb) {
     int64_t start;
     int32_t deg;
     bool valid;
     row_extent(indptr, seeds[b], n_nodes, start, deg, valid);
-    const float* w = probs + start;
-    float total = 0.f;
-    for (int32_t c0 = 0; c0 < deg; c0 += kChunk) {
-      const int32_t c1 = deg - c0 < kChunk ? deg : c0 + kChunk;
-      float ct = 0.f;
-      for (int32_t i = c0; i < c1; ++i) ct = __fadd_rn(ct, w[i]);
-      total = __fadd_rn(total, ct);
+    if (scan && deg > kShortRow) continue;  // a long row: kernels 2-3 (or 2')
+    if (replace) {
+      cdf_row_warp(probs, indices, keys, ids, mask, b, start, deg, valid, k, n_edges, lk, lane);
+    } else if (k <= kRegMaxK) {
+      unsigned long long lv;
+      const int n = topk_range_reg(probs, start, 0, deg, (uint32_t)keys[b], n_edges, k, lane, nullptr, lv);
+      topk_write_reg(indices, start, n_edges, lv, n, k, ids, mask, b, lane);
+    } else {
+      const int n = topk_range(probs, start, 0, deg, (uint32_t)keys[b], n_edges, lk, lo, k, lane, nullptr);
+      topk_write(indices, start, n_edges, lo, n, k, ids, mask, b, lane);
     }
-    for (int t = lane; t < k; t += 32) {
-      const float target = __fmul_rn(bits_to_uniform((uint32_t)keys[b * k + t]), total);
-      bool found = false;
-      int32_t pick = 0;
-      float before = 0.f;  // the chunks before this one
-      for (int32_t c0 = 0; c0 < deg && !found; c0 += kChunk) {
-        const int32_t c1 = deg - c0 < kChunk ? deg : c0 + kChunk;
-        const float local = __fsub_rn(target, before);
-        float cs = 0.f;
-        for (int32_t i = c0; i < c1; ++i) {
-          cs = __fadd_rn(cs, w[i]);
-          if (local >= 0.f && cs > local) {
-            found = true;
-            pick = i;
-            break;
+  }
+}
+
+// K7 without replacement, kernel 2: warp g takes the units [g Lu, g Lu +
+// Lu) of the long rows' line; rows wholly inside are written, the pieces
+// of split rows go to the warp's slots (0: its first row, 1: its last).
+__global__ void __launch_bounds__(kSliceWarps * 32, kSliceWarpsPerSM / kSliceWarps)
+k7_slices_kernel(const int32_t* __restrict__ indices, const float* __restrict__ probs,
+                 const int64_t* __restrict__ keys, int32_t* __restrict__ ids,
+                 uint8_t* __restrict__ mask, int k, int64_t n_edges, K7Work work) {
+  extern __shared__ float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
+  const int64_t g = (int64_t)blockIdx.x * wpb + warp;
+  const K7Header h = *work.hdr;
+  if (g >= h.workers) return;
+  float* lk = smem_f + (size_t)warp * 2 * k;
+  int32_t* lo = reinterpret_cast<int32_t*>(lk + k);
+  const int64_t s = g * h.piece;
+  const int64_t e = s + h.piece < h.units ? s + h.piece : h.units;
+  if (lane == 0) {
+    work.slot_hdr[2 * g] = make_int2(-1, 0);
+    work.slot_hdr[2 * g + 1] = make_int2(-1, 0);
+  }
+  const int64_t j0 = work.first[g];
+  for (int64_t j = j0; j < h.n_long; ++j) {
+    const int64_t P0 = work.lunits[j];
+    if (P0 >= e) break;
+    const int64_t P1 = work.lunits[j + 1];
+    const int64_t b = work.lrow[j], start = work.lstart[j];
+    const int32_t o0 = (int32_t)(s > P0 ? s - P0 : 0);
+    const int32_t o1 = (int32_t)((e < P1 ? e : P1) - P0);
+    const bool whole = P0 >= s && P1 <= e;
+    unsigned* bound = whole ? nullptr : work.bound + P0 / h.piece * kBoundStride;
+    const int64_t slot = 2 * g + (j == j0 ? 0 : 1);
+    if (k <= kRegMaxK) {
+      unsigned long long lv;
+      const int n = topk_range_reg(probs, start, o0, o1, (uint32_t)keys[b], n_edges, k, lane, bound, lv);
+      if (whole) {
+        topk_write_reg(indices, start, n_edges, lv, n, k, ids, mask, b, lane);
+      } else {
+        if (lane < n) work.slot_ent[slot * k + lane] = lv;
+        if (lane == 0) work.slot_hdr[slot] = make_int2((int32_t)j, n);
+      }
+    } else {
+      const int n = topk_range(probs, start, o0, o1, (uint32_t)keys[b], n_edges, lk, lo, k, lane, bound);
+      if (whole) {
+        topk_write(indices, start, n_edges, lo, n, k, ids, mask, b, lane);
+      } else {
+        for (int i = lane; i < n; i += 32) work.slot_ent[slot * k + i] = pack_entry(lk[i], lo[i]);
+        if (lane == 0) work.slot_hdr[slot] = make_int2((int32_t)j, n);
+      }
+    }
+    __syncwarp();  // the list is the next row's
+  }
+}
+
+// K7 without replacement, kernel 3: warp g merges the split row whose first
+// unit lies in its range (if any): the lists of the warps g .. z it spans
+// (g's slot 0 or 1, then slot 0 of each), lane l holding lists l, l + 32,
+// ...; each round the warp's largest head (packed: lax.top_k's order) is
+// the next pick, and its list advances.
+__global__ void __launch_bounds__(kMergeWarps * 32)
+k7_merge_kernel(const int32_t* __restrict__ indices, int32_t* __restrict__ ids,
+                uint8_t* __restrict__ mask, int k, int64_t n_edges, K7Work work) {
+  extern __shared__ int32_t smem_i[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
+  const int64_t g = (int64_t)blockIdx.x * wpb + warp;
+  const K7Header h = *work.hdr;
+  if (g >= h.workers) return;
+  int32_t* picks = smem_i + (size_t)warp * k;  // the picks' offsets, in order
+  const int64_t s = g * h.piece;
+  const int2 h0 = work.slot_hdr[2 * g], h1 = work.slot_hdr[2 * g + 1];
+  int64_t j = -1, first_slot = 0;
+  if (h0.x >= 0 && work.lunits[h0.x] == s) {
+    j = h0.x;
+    first_slot = 2 * g;
+  } else if (h1.x >= 0) {
+    j = h1.x;
+    first_slot = 2 * g + 1;
+  }
+  if (j < 0) return;
+  const int64_t z = (work.lunits[j + 1] - 1) / h.piece;  // the last warp it spans
+  const int64_t L = z - g + 1;
+  if (L > kMaxPieces) __trap();  // piece >= maxdeg / (kMaxPieces - 1) rules this out
+  unsigned long long head[kPiecesPerLane], next[kPiecesPerLane];
+  int cur[kPiecesPerLane], cnt[kPiecesPerLane];
+#pragma unroll
+  for (int q = 0; q < kPiecesPerLane; ++q) {
+    const int64_t i = lane + 32 * q;
+    const int64_t slot = i == 0 ? first_slot : 2 * (g + i);
+    cnt[q] = i < L ? work.slot_hdr[slot].y : 0;
+    head[q] = cnt[q] > 0 ? work.slot_ent[slot * k] : 0ull;
+    next[q] = cnt[q] > 1 ? work.slot_ent[slot * k + 1] : 0ull;
+    cur[q] = 2;
+  }
+  int got = 0;
+  for (; got < k; ++got) {
+    unsigned long long best = 0ull;
+#pragma unroll
+    for (int q = 0; q < kPiecesPerLane; ++q) best = head[q] > best ? head[q] : best;
+    const unsigned hi = __reduce_max_sync(kFull, (unsigned)(best >> 32));
+    const unsigned lo = __reduce_max_sync(kFull, (unsigned)(best >> 32) == hi ? (unsigned)best : 0u);
+    if (hi == 0u) break;  // every list is spent
+    const unsigned long long win = ((unsigned long long)hi << 32) | lo;
+#pragma unroll
+    for (int q = 0; q < kPiecesPerLane; ++q) {
+      if (head[q] == win) {  // one (lane, list) holds it: offsets differ
+        const int64_t i = lane + 32 * q;
+        const int64_t slot = i == 0 ? first_slot : 2 * (g + i);
+        head[q] = next[q];
+        next[q] = cur[q] < cnt[q] ? work.slot_ent[slot * k + cur[q]] : 0ull;
+        ++cur[q];
+      }
+    }
+    if (lane == 0) picks[got] = (int32_t)(0xffffffffu - lo);
+  }
+  __syncwarp();
+  const int64_t b = work.lrow[j], start = work.lstart[j];
+  for (int jj = lane; jj < k; jj += 32) {
+    const bool take = jj < got;
+    ids[b * k + jj] = take ? indices[clamp_pos(start + picks[jj], n_edges)] : kInvalid;
+    mask[b * k + jj] = take;
+  }
+}
+
+// K7 with replacement, kernel 2': a block per long row from the queue.  Warp
+// v sums the chunk groups v, v + kCdfWarps, ... (32 chunks, a lane a chunk):
+// per 32-edge step the warp loads the 32 chunks' edges coalesced (the next
+// step's loads in flight meanwhile) into a shared tile and each lane adds
+// its chunk's row of the tile in order; one thread folds the sums into the
+// befores and the total (in shared memory when the row has at most
+// kCdfSmemChunks chunks, else in the block's workspace); warp v takes the
+// draws v, v + kCdfWarps, ...: a ballot over 32 chunks a step finds the
+// first chunk whose local target is >= 0 and below its sum, the warp
+// stages that chunk's weights in its tile, and one lane walks it.
+__global__ void __launch_bounds__(kCdfWarps * 32)
+k7_cdf_long_kernel(const int32_t* __restrict__ indices, const float* __restrict__ probs,
+                   const int64_t* __restrict__ keys, int32_t* __restrict__ ids,
+                   uint8_t* __restrict__ mask, int k, int64_t n_edges, K7Work work) {
+  __shared__ float tile[kCdfWarps][32][33];
+  __shared__ float s_sums[2 * kCdfSmemChunks];
+  __shared__ unsigned s_j;
+  __shared__ float s_total;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t n_long = work.hdr->n_long;
+  for (;;) {
+    if (threadIdx.x == 0) s_j = atomicAdd(&work.hdr->queue, 1u);
+    __syncthreads();
+    const int64_t j = s_j;
+    if (j >= n_long) break;
+    const int64_t b = work.lrow[j], start = work.lstart[j];
+    const int32_t deg = (int32_t)(work.lunits[j + 1] - work.lunits[j]);
+    const int32_t nch = (deg + kChunk - 1) / kChunk;
+    const bool in_smem = nch <= kCdfSmemChunks;
+    const float* w = probs + start;
+    if (!in_smem && nch > work.nchmax) {  // longer than max_degree promised: no table
+      const float total = row_total_warp(w, deg, nch, lane);
+      for (int t = warp * 32 + lane; t < k; t += kCdfWarps * 32) {
+        const float target = __fmul_rn(bits_to_uniform((uint32_t)keys[b * k + t]), total);
+        int32_t pick = 0;
+        const bool take = total > 0.f && draw_untabled(w, deg, nch, target, pick);
+        ids[b * k + t] = take ? indices[clamp_pos(start + pick, n_edges)] : kInvalid;
+        mask[b * k + t] = take;
+      }
+      __syncthreads();  // s_j is the next row's
+      continue;
+    }
+    float* ct = in_smem ? s_sums : work.cdf + (size_t)blockIdx.x * 2 * work.nchmax;  // chunk sums
+    float* bef = ct + (in_smem ? kCdfSmemChunks : work.nchmax);                      // the chunks before each
+    for (int32_t c0 = warp * 32; c0 < nch; c0 += kCdfWarps * 32) {
+      float acc = 0.f, v[32];  // chunk c0 + lane's sum; one step's tile column
+      auto load_step = [&](int step) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int32_t o = (c0 + i) * kChunk + step * 32 + lane;
+          v[i] = c0 + i < nch && o < deg ? w[o] : 0.f;
+        }
+      };
+      load_step(0);
+      for (int step = 0; step < kChunk / 32; ++step) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) tile[warp][i][lane] = v[i];
+        __syncwarp();
+        if (step + 1 < kChunk / 32) load_step(step + 1);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc = __fadd_rn(acc, tile[warp][lane][i]);
+        __syncwarp();
+      }
+      if (c0 + lane < nch) ct[c0 + lane] = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.f;
+      for (int32_t c = 0; c < nch; c += 16) {  // 16 sums loaded ahead of their adds
+        float s16[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) s16[q] = c + q < nch ? ct[c + q] : 0.f;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          if (c + q < nch) {
+            bef[c + q] = total;
+            total = __fadd_rn(total, s16[q]);
           }
         }
-        before = __fadd_rn(before, cs);
       }
-      const bool take = valid && total > 0.f && found;
-      ids[b * k + t] = take ? indices[clamp_pos(start + pick, n_edges)] : kInvalid;
-      mask[b * k + t] = take;
+      s_total = total;
     }
+    __syncthreads();
+    const float total = s_total;
+    float* stage = &tile[warp][0][0];
+    for (int t = warp; t < k; t += kCdfWarps) {
+      const float target = __fmul_rn(bits_to_uniform((uint32_t)keys[b * k + t]), total);
+      int32_t c_hit = -1;
+      for (int32_t c0 = 0; c0 < nch && c_hit < 0; c0 += 32) {
+        const int32_t c = c0 + lane;
+        bool q = false;
+        if (c < nch) {
+          const float local = __fsub_rn(target, bef[c]);
+          q = local >= 0.f && ct[c] > local;
+        }
+        const unsigned bal = __ballot_sync(kFull, q);
+        if (bal) c_hit = c0 + __ffs(bal) - 1;
+      }
+      const int32_t i0 = c_hit * kChunk;
+      const int32_t len = c_hit < 0 ? 0 : (deg - i0 < kChunk ? deg - i0 : kChunk);
+      for (int32_t q = lane; q < len; q += 32) stage[q] = w[i0 + q];
+      __syncwarp();
+      if (lane == 0) {
+        int32_t pick = 0;
+        const bool found = c_hit >= 0 && walk_chunk(stage, 0, len, __fsub_rn(target, bef[c_hit]), pick);
+        const bool take = total > 0.f && found;  // a long row's seed is valid
+        ids[b * k + t] = take ? indices[clamp_pos(start + i0 + pick, n_edges)] : kInvalid;
+        mask[b * k + t] = take;
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // the sums, the tiles and s_j are the next row's
   }
 }
 
@@ -588,10 +1306,11 @@ __global__ void sample_biased_alias_kernel(
   }
 }
 
-// Warps per block such that their shared memory fits the default 48 KB.
-inline int warps_for(size_t smem_per_warp, int most = kMaxWarps) {
+// Warps per block such that their shared memory fits the default 48 KB
+// (less what the kernel declares statically).
+inline int warps_for(size_t smem_per_warp, int most = kMaxWarps, size_t fixed = 0) {
   if (smem_per_warp == 0) return most;
-  const int w = (int)(kSmemBudget / smem_per_warp);
+  const int w = (int)((kSmemBudget - fixed) / smem_per_warp);
   return w < 1 ? 1 : (w > most ? most : w);
 }
 
@@ -604,16 +1323,30 @@ template <typename IP>
 int launch_sample_biased(const void* indptr, const int32_t* indices, const float* probs,
                          const int32_t* seeds, const int64_t* keys, int32_t* ids, uint8_t* mask,
                          int64_t B, int k, int64_t n_nodes, int64_t n_edges, int replace,
-                         cudaStream_t stream) {
-  const IP* ip = static_cast<const IP*>(indptr);
+                         const K7Layout& L, void* workspace, cudaStream_t stream) {
+  const int scan = L.total > 0;  // rows can be long: kernels 2-3 (or 2') take them
+  const K7Work work = scan ? k7_bind(L, workspace) : K7Work{};
+  const size_t per_warp = replace ? (size_t)2 * kWarpChunks * sizeof(float) : (size_t)2 * k * sizeof(float);
+  const int wpb = warps_for(per_warp, kRowWarps, kScanSmem);
+  // the row blocks and the scan block all fit on the card at once: a block
+  // left for a second wave would double the kernel's time
+  const int64_t resident = L.sms * (2 * kRowWarps / wpb) - scan;
+  const unsigned row_blocks = grid_for(B, wpb) < resident ? grid_for(B, wpb) : (unsigned)resident;
+  k7_rows_kernel<IP><<<row_blocks + scan, wpb * 32, wpb * per_warp, stream>>>(
+      static_cast<const IP*>(indptr), indices, probs, seeds, keys, ids, mask, B, k, n_nodes, n_edges,
+      replace, scan, work);
+  if (!scan) return (int)cudaGetLastError();
   if (replace) {
-    sample_biased_cdf_kernel<IP><<<grid_for(B, kMaxWarps), kMaxWarps * 32, 0, stream>>>(
-        ip, indices, probs, seeds, keys, ids, mask, B, k, n_nodes, n_edges);
+    k7_cdf_long_kernel<<<(unsigned)L.Gb, kCdfWarps * 32, 0, stream>>>(indices, probs, keys, ids, mask, k,
+                                                                     n_edges, work);
   } else {
-    const size_t per_warp = (size_t)2 * k * sizeof(float);
-    const int wpb = warps_for(per_warp, kTopkWarps);
-    sample_biased_topk_kernel<IP><<<grid_for(B, wpb), wpb * 32, wpb * per_warp, stream>>>(
-        ip, indices, probs, seeds, keys, ids, mask, B, k, n_nodes, n_edges);
+    const size_t list = (size_t)2 * k * sizeof(float);
+    const int spb = warps_for(list, kSliceWarps);
+    k7_slices_kernel<<<(unsigned)((L.W + spb - 1) / spb), spb * 32, spb * list, stream>>>(
+        indices, probs, keys, ids, mask, k, n_edges, work);
+    const int mpb = warps_for((size_t)k * sizeof(int32_t), kMergeWarps);
+    k7_merge_kernel<<<(unsigned)((L.W + mpb - 1) / mpb), mpb * 32, mpb * k * sizeof(int32_t), stream>>>(
+        indices, ids, mask, k, n_edges, work);
   }
   return (int)cudaGetLastError();
 }
@@ -657,23 +1390,45 @@ int dg_sample_uniform(const void* indptr, int indptr_int64, const int32_t* indic
                                         n_edges, replace, st);
 }
 
+// K7's workspace: the bytes dg_sample_biased needs for B rows, k, a graph
+// whose rows have at most max_degree edges, and the mode, on the current
+// device (0 when max_degree <= 1024), written to *bytes.  Reads the
+// device's SM count; launches nothing.
+int dg_sample_biased_workspace(int64_t B, int k, int64_t max_degree, int replace, int64_t* bytes) {
+  if (B < 0 || k < 1 || k > kMaxK || max_degree < 0 || bytes == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  *bytes = (int64_t)k7_layout(B, k, max_degree, replace, sms).total;
+  return 0;
+}
+
 // K7.  indptr, indices, seeds, ids and mask as for K6; probs [n_edges]
 // f32 weights (>= 0); keys int64 holding uint32 values, [B] (replace = 0:
-// the row keys) or [B, k] (replace = 1: one per draw).  Needs n_nodes >= 1,
-// n_edges >= 1 and 1 <= k <= 1024 (B may be 0).
+// the row keys) or [B, k] (replace = 1: one per draw); max_degree the
+// graph's longest row (a longer row stays exact, and costs O(deg) a draw
+// with replacement); workspace of workspace_bytes >=
+// dg_sample_biased_workspace's on the device (unread when that is 0).
+// Needs n_nodes >= 1, n_edges >= 1 and 1 <= k <= 1024 (B may be 0).
 int dg_sample_biased(const void* indptr, int indptr_int64, const int32_t* indices,
                      const float* probs, const int32_t* seeds, const int64_t* keys, int32_t* ids,
                      uint8_t* mask, int64_t B, int k, int64_t n_nodes, int64_t n_edges,
-                     int replace, void* stream) {
-  if (B < 0 || k < 1 || k > kMaxK || n_nodes <= 0 || n_edges <= 0)
+                     int replace, int64_t max_degree, void* workspace, int64_t workspace_bytes,
+                     void* stream) {
+  if (B < 0 || k < 1 || k > kMaxK || n_nodes <= 0 || n_edges <= 0 || max_degree < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const K7Layout L = k7_layout(B, k, max_degree, replace, sms);
+  if (L.total > 0 && (workspace == nullptr || workspace_bytes < (int64_t)L.total))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (indptr_int64)
     return launch_sample_biased<int64_t>(indptr, indices, probs, seeds, keys, ids, mask, B, k,
-                                         n_nodes, n_edges, replace, st);
+                                         n_nodes, n_edges, replace, L, workspace, st);
   return launch_sample_biased<int32_t>(indptr, indices, probs, seeds, keys, ids, mask, B, k,
-                                       n_nodes, n_edges, replace, st);
+                                       n_nodes, n_edges, replace, L, workspace, st);
 }
 
 // K8.  As K7, plus alias_prob [n_edges] f32 and alias_idx [n_edges] int32

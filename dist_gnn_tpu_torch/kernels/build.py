@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-fopenmp", "-shared")
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[object, ctypes.CDLL] = {}  # a name, or (name, *defines)
 
 
 def _nvcc() -> str:
@@ -55,34 +55,35 @@ def _source(name: str) -> Path:
     return cu if cu.exists() else CSRC_DIR / f"{name}.cc"
 
 
-def _command(src: Path, out: Path) -> List[str]:
+def _command(src: Path, out: Path, defines: Sequence[str] = ()) -> List[str]:
     if src.suffix == ".cu":
-        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+        return [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(out), str(src)]
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host runtime needs a C++ compiler")
-    return [gxx, *GXX_FLAGS, "-o", str(out), str(src)]
+    return [gxx, *GXX_FLAGS, *defines, "-o", str(out), str(src)]
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     src = _source(name)
-    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    flags = (*(NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS), *defines)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+def build_all(names: Sequence[str] = SOURCES, defines: Sequence[str] = ()) -> Dict[str, str]:
     """Compile every missing library, one compiler process per source, all
-    in parallel.  Returns each name's compiler log (``-Xptxas -v`` prints
-    the registers and spills of every kernel); raises if any build fails."""
+    in parallel, with the extra ``defines`` (``-DNAME=value``; a library of
+    its own).  Returns each name's compiler log (``-Xptxas -v`` prints the
+    registers and spills of every kernel); raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = _command(_source(name), tmp)
+        cmd = _command(_source(name), tmp, defines)
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,
@@ -104,12 +105,14 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``lib<name>``, built first if needed."""
-    lib = _LOADED.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library ``lib<name>`` (built with the extra ``defines``),
+    built first if needed."""
+    key = (name, *defines) if defines else name
+    lib = _LOADED.get(key)
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, defines)
         if not path.exists():
-            build_all((name,))
-        lib = _LOADED[name] = ctypes.CDLL(str(path))
+            build_all((name,), defines)
+        lib = _LOADED[key] = ctypes.CDLL(str(path))
     return lib

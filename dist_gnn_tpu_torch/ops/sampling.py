@@ -27,19 +27,21 @@ names), and ``key`` is either a ``torch.Generator`` the keys are drawn
 from, or the key tensors themselves, so a test can inject the JAX
 package's ``prng.random_keys`` and require the same samples.
 
-On the card each sampler is one CUDA kernel per call (``csrc/sampling.cu``:
-K6 ``dg_sample_uniform``, K7 ``dg_sample_biased``, K8
+On the card each sampler makes one call a hop into ``csrc/sampling.cu``
+(K6 ``dg_sample_uniform``, K7 ``dg_sample_biased``, K8
 ``dg_sample_biased_alias``, whose header notes what each replaces, what
-bounds it and how its design meets that bound); their plain PyTorch
-versions (``*_plain``) serve CPU tensors and only them.  A CUDA tensor
-launches the kernel, or raises: there is no fallback.  Each wrapper's
-``.launches`` counts its launches.
+bounds it and how its design meets that bound): one kernel for K6 and K8,
+up to three for K7, in a workspace the wrapper takes from torch's
+allocator.
+Their plain PyTorch versions (``*_plain``) serve CPU tensors and only
+them.  A CUDA tensor launches the kernel, or raises: there is no fallback.
+Each wrapper's ``.launches`` counts its calls that launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Union
+from typing import NamedTuple, Sequence, Union
 
 import torch
 
@@ -80,14 +82,16 @@ def _row_extents(graph: Graph, seeds: torch.Tensor):
     return start, deg, valid
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("sampling")
+def _lib(defines: Sequence[str] = ()) -> ctypes.CDLL:
+    lib = build.load("sampling", defines)
     if not getattr(lib, "_argtypes_set", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.dg_sample_uniform.argtypes = [p, i32, p, p, p, p, p, i64, i32, i64, i64, i32, p]
         lib.dg_sample_uniform.restype = i32
-        lib.dg_sample_biased.argtypes = [p, i32, p, p, p, p, p, p, i64, i32, i64, i64, i32, p]
+        lib.dg_sample_biased.argtypes = [p, i32, p, p, p, p, p, p, i64, i32, i64, i64, i32, i64, p, i64, p]
         lib.dg_sample_biased.restype = i32
+        lib.dg_sample_biased_workspace.argtypes = [i64, i32, i64, i32, ctypes.POINTER(ctypes.c_int64)]
+        lib.dg_sample_biased_workspace.restype = i32
         lib.dg_sample_biased_alias.argtypes = [
             p, i32, p, p, p, p, p, p, p, p, p, p, i64, i32, i64, i64, i32, p,
         ]
@@ -421,11 +425,14 @@ def sample_biased(
 ) -> SampledNeighbors:
     """Weighted sampling of up to ``k`` in-neighbours per seed row by
     ``graph.probs`` (JAX: ``sample_biased``, ``ops/sampling.py:671-761``):
-    K7 on the card, one launch per call (plain version:
+    K7 on the card, one call per hop (plain version:
     :func:`sample_biased_plain`).  Without replacement the exact Gumbel
     top-k of each row; with replacement the chunked inverse CDF.  Keys are
     drawn (or checked) as the plain version draws them; an edgeless graph or
-    an empty output is answered without a launch."""
+    an empty output is answered without a launch.  When a row can be longer
+    than the kernel's short-row limit (``graph.max_degree``), the call takes
+    a workspace sized from ``B``, ``k`` and ``graph.max_degree`` from
+    torch's allocator on the seeds' stream; nothing is read back."""
     if seeds.device.type == "cpu":
         return sample_biased_plain(graph, seeds, k, replace, key)
     _check_weighted(graph, seeds, k, alias=False)
@@ -435,10 +442,17 @@ def sample_biased(
         return _empty(B, k, seeds.device)
     ids = torch.empty((B, k), dtype=torch.int32, device=seeds.device)
     mask = torch.empty((B, k), dtype=torch.bool, device=seeds.device)
-    rc = _lib().dg_sample_biased(
+    lib = _lib()
+    stream = stream_of(seeds)
+    nbytes = ctypes.c_int64(0)
+    check_launch(lib.dg_sample_biased_workspace(B, k, int(graph.max_degree), int(replace), ctypes.byref(nbytes)),
+                 "sample_biased workspace")
+    work = torch.empty(nbytes.value, dtype=torch.uint8, device=seeds.device) if nbytes.value else None
+    rc = lib.dg_sample_biased(
         graph.indptr.data_ptr(), int(graph.indptr.dtype == torch.int64), graph.indices.data_ptr(),
         graph.probs.data_ptr(), seeds.data_ptr(), keys.data_ptr(), ids.data_ptr(), mask.data_ptr(),
-        B, k, graph.num_nodes, graph.num_edges, int(replace), stream_of(seeds),
+        B, k, graph.num_nodes, graph.num_edges, int(replace), int(graph.max_degree),
+        None if work is None else work.data_ptr(), nbytes.value, stream,
     )
     check_launch(rc, "sample_biased")
     sample_biased.launches += 1

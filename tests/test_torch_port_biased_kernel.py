@@ -1,18 +1,24 @@
 """K7 and K8, the weighted samplers' kernels: a numpy model of each
-kernel's per-row algorithm held to the port's plain versions (and those to
+kernel's decomposition held to the port's plain versions (and those to
 the JAX package), and the wrappers' contract.
 
 The CUDA kernels run only on the card; ``chip_smoke.py`` holds them against
 ``sample_biased_plain`` and ``sample_biased_alias_plain`` there.  The
 models below compute each row the way ``csrc/sampling.cu`` does:
 
-* K7 without replacement: lanes take 32 consecutive edges, a ballot picks
-  the lanes whose key beats the list's k-th at the chunk's start, and
-  those are inserted in lane order after a re-check, at the count of list
-  entries >= the key;
-* K7 with replacement: f32 sums added one weight at a time, chunk by
-  chunk, and each draw's walk that stops at the first running sum above
-  its target;
+* K7 without replacement: a row of at most ``SHORT_ROW`` edges is one
+  warp's pass (lanes take 32 consecutive edges, a ballot picks the lanes
+  whose key beats the list's k-th, and those are inserted in lane order
+  after a re-check, at the count of list entries that beat the key); the
+  longer rows are laid end to end on one line of edges, cut into equal
+  ranges, one a warp, regardless of row boundaries; a row inside a range
+  is finished there, the pieces of a split row share a lower bound of its
+  k-th key (raised to each full list's k-th) and their lists are merged,
+  k rounds of the largest head;
+* K7 with replacement: each 256-edge chunk summed from 0 in row order, the
+  chunk sums folded in order into the befores and the total, each draw's
+  chunk the first whose local target is >= 0 and below its sum, and the
+  walk of that chunk alone;
 * K8: a short row's keys ranked by counting, a long row's first distinct
   draws ranked by ballot popcounts in rounds of 32.
 
@@ -21,6 +27,8 @@ Every f32 operation is a numpy float32 operation in the kernel's order
 the log is taken in double and rounded once.  Tolerance: exact (ids, mask
 and the shortfall count).
 """
+
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -39,15 +47,6 @@ INVALID = int(jgraph.INVALID_ID)
 F32 = np.float32
 
 
-def _mix32(x):
-    x = np.uint32(x)
-    x = x ^ (x >> np.uint32(16))
-    x = np.uint32((int(x) * 0x85EBCA6B) & 0xFFFFFFFF)
-    x = x ^ (x >> np.uint32(13))
-    x = np.uint32((int(x) * 0xC2B2AE35) & 0xFFFFFFFF)
-    return x ^ (x >> np.uint32(16))
-
-
 def _uniform(bits):
     u = F32(int(bits) >> 8) * F32(2.0**-24)
     return max(u, F32(2.0**-25))
@@ -64,11 +63,51 @@ def _extent(indptr, seed, n):
     return int(indptr[node]), int(indptr[node + 1] - indptr[node]), True
 
 
-LONG_ROW, TOPK_WARPS = 1024, 16  # csrc/sampling.cu kLongRow, kTopkWarps (k <= 384)
+# csrc/sampling.cu: kShortRow, kMinPiece, kMaxPieces, kUnroll, kChunk; W on a
+# 132-SM H100 (kSliceWarpsPerSM warps an SM)
+SHORT_ROW, MIN_PIECE, MAX_PIECES, UNROLL, CHUNK = 1024, 1024, 256, 4, 256
+SLICE_WARPS = 132 * 32
+ORD_NEG_INF = 0x007FFFFF
 
 
 def _beats(ka, oa, kb, ob):
     return ka > kb or (ka == kb and oa < ob)
+
+
+def _ord(key):
+    """The order-preserving bits of a float32 (the kernel's float_to_ord)."""
+    u = int(np.float32(key).view(np.uint32))
+    return (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+
+
+def _from_ord(o):
+    u = (o & 0x7FFFFFFF) if o & 0x80000000 else (~o & 0xFFFFFFFF)
+    return np.uint32(u).view(np.float32)
+
+
+def _pack(key, off):
+    """A merge entry (the kernel's pack_entry): larger beats smaller."""
+    return (_ord(key) << 32) | (0xFFFFFFFF - off)
+
+
+def _mix32_np(x):
+    x = np.asarray(x, np.uint32)
+    x = x ^ (x >> np.uint32(16))
+    x = (x.astype(np.uint64) * 0x85EBCA6B & 0xFFFFFFFF).astype(np.uint32)
+    x = x ^ (x >> np.uint32(13))
+    x = (x.astype(np.uint64) * 0xC2B2AE35 & 0xFFFFFFFF).astype(np.uint32)
+    return x ^ (x >> np.uint32(16))
+
+
+def _row_keys(start, deg, rk, probs, E):
+    """Every edge's Gumbel key in one row, -inf at zero weight (what
+    ``_gumbel`` gives edge by edge)."""
+    off = np.arange(deg, dtype=np.uint32)
+    bits = _mix32_np(np.uint32(rk) ^ _mix32_np(off))
+    u = np.maximum((bits >> np.uint32(8)).astype(np.float32) * F32(2.0**-24), F32(2.0**-25))
+    lg = np.log(u.astype(np.float64)).astype(np.float32)
+    w = probs[np.minimum(start + off.astype(np.int64), E - 1)]
+    return np.where(w > 0, lg / np.where(w > 0, w, F32(1)), F32(-np.inf)).astype(np.float32)
 
 
 def _insert(lk, lo, k, ck, co):
@@ -80,75 +119,141 @@ def _insert(lk, lo, k, ck, co):
     del lk[k:], lo[k:]
 
 
-def _topk_pass(start, deg, rk, probs, E, k, c0, cstep):
-    """One warp's pass over chunks c0, c0 + cstep, ...: the ballot against
-    the list's k-th at each chunk's start, then insertions in lane order."""
+def _topk_range(keys, o0, o1, k, bound=None):
+    """One warp's pass over a row's edges [o0, o1) (``topk_range``): each
+    UNROLL steps of 32 edges the shared bound (``bound``, a one-element list
+    of order bits, for a split row) is read; step by step the lanes whose key
+    beats the list's k-th and is not below the bound are inserted in lane
+    order; a full list then raises the bound to its k-th.  Edges the fast-log
+    filter skips are below the threshold, so they fail the ballot here too."""
     lk, lo = [], []
-    for base in range(c0 * 32, deg, cstep * 32):
-        lane_keys = []
-        for lane in range(32):
-            off = base + lane
-            key = -np.inf
-            if off < deg:
-                w = probs[min(start + off, E - 1)]
-                if w > 0:
-                    key = _gumbel(_mix32(np.uint32(rk) ^ _mix32(np.uint32(off))), w)
-            lane_keys.append(key)
-        thr = lk[k - 1] if len(lk) == k else -np.inf
-        for lane in [ln for ln in range(32) if lane_keys[ln] > thr]:
-            _insert(lk, lo, k, lane_keys[lane], base + lane)
+    for first in range(o0, o1, UNROLL * 32):
+        shared = _from_ord(bound[0]) if bound is not None else -np.inf
+        for base in range(first, min(first + UNROLL * 32, o1), 32):
+            own = lk[k - 1] if len(lk) == k else -np.inf
+            lanes = [ln for ln in range(32) if base + ln < o1 and keys[base + ln] > own and keys[base + ln] >= shared]
+            for ln in lanes:
+                _insert(lk, lo, k, keys[base + ln], base + ln)
+        if bound is not None and len(lk) == k:
+            bound[0] = max(bound[0], _ord(lk[k - 1]))
     return lk, lo
 
 
-def model_k7_topk(indptr, indices, probs, seeds, keys, k):
+def k7_line(degs, workers=SLICE_WARPS, min_piece=MIN_PIECE):
+    """The long rows' line: (units P, piece Lu, warps G) from the long
+    rows' degrees in row order (``k7_scan_long``)."""
+    P = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    U = int(P[-1])
+    piece = max(min_piece, -(-U // workers), -(-max(degs) // (MAX_PIECES - 1)))
+    return P, piece, -(-U // piece)
+
+
+def model_k7_topk(indptr, indices, probs, seeds, keys, k, workers=SLICE_WARPS, min_piece=MIN_PIECE,
+                  reverse=False):
+    """K7 without replacement; ``reverse`` runs the slice warps last to
+    first (the card runs them in any order: only the shared bound sees it)."""
     n, E = len(indptr) - 1, len(indices)
     ids = np.full((len(seeds), k), INVALID, np.int32)
     mask = np.zeros((len(seeds), k), bool)
+
+    def write(b, start, offs):
+        for j, o in enumerate(offs):
+            ids[b, j] = indices[min(start + o, E - 1)]
+            mask[b, j] = True
+
+    split = n > 0 and int(np.diff(indptr).max()) > SHORT_ROW  # the graph's max_degree
+    long = []  # (b, start, deg) in row order
     for b, seed in enumerate(seeds):
         start, deg, _ = _extent(indptr, seed, n)
-        if deg <= LONG_ROW:  # a warp's own row
-            lk, lo = _topk_pass(start, deg, keys[b], probs, E, k, 0, 1)
-        else:  # shared by the block's warps, merged into warp 0's list
-            parts = [_topk_pass(start, deg, keys[b], probs, E, k, w, TOPK_WARPS) for w in range(TOPK_WARPS)]
-            lk, lo = parts[0]
-            for wk, wo in parts[1:]:
-                for ck, co in zip(wk, wo):
-                    if len(lk) == k and not _beats(ck, co, lk[k - 1], lo[k - 1]):
-                        break
-                    _insert(lk, lo, k, ck, co)
-        for j in range(len(lk)):
-            ids[b, j] = indices[min(start + lo[j], E - 1)]
-            mask[b, j] = True
+        if split and deg > SHORT_ROW:
+            long.append((b, start, deg))
+            continue
+        write(b, start, _topk_range(_row_keys(start, deg, keys[b], probs, E), 0, deg, k)[1])
+    if not long:
+        return ids, mask
+    P, piece, G = k7_line([d for _, _, d in long], workers, min_piece)
+    row_keys = [_row_keys(start, deg, keys[b], probs, E) for b, start, deg in long]
+    bounds = [[ORD_NEG_INF] for _ in long]
+    slots = {}  # (warp, 0 | 1) -> (long row, [(key, offset)] descending)
+    for g in (range(G - 1, -1, -1) if reverse else range(G)):
+        s, e = g * piece, min(g * piece + piece, int(P[-1]))
+        j0 = int(np.searchsorted(P, s, side="right")) - 1
+        for j in range(j0, len(long)):
+            if P[j] >= e:
+                break
+            b, start, deg = long[j]
+            o0, o1 = max(s - P[j], 0), min(e, P[j + 1]) - P[j]
+            whole = P[j] >= s and P[j + 1] <= e
+            lk, lo = _topk_range(row_keys[j], o0, o1, k, None if whole else bounds[j])
+            if whole:
+                write(b, start, lo)
+            else:
+                slots[(g, 0 if j == j0 else 1)] = (j, list(zip(lk, lo)))
+    for g in range(G):  # k7_merge_kernel: the warp of a split row's first edge
+        h0, h1 = slots.get((g, 0)), slots.get((g, 1))
+        if h0 is not None and P[h0[0]] == g * piece:
+            j, first = h0[0], (g, 0)
+        elif h1 is not None:
+            j, first = h1[0], (g, 1)
+        else:
+            continue
+        z = (int(P[j + 1]) - 1) // piece
+        assert z - g + 1 <= MAX_PIECES
+        lists = [slots[first][1]] + [slots[(q, 0)][1] for q in range(g + 1, z + 1)]
+        assert all(slots[(q, 0)][0] == j for q in range(g + 1, z + 1))
+        heads, picks = [0] * len(lists), []
+        for _ in range(k):
+            live = [(_pack(*lst[h]), i) for i, (lst, h) in enumerate(zip(lists, heads)) if h < len(lst)]
+            if not live:
+                break
+            best, i = max(live)
+            picks.append(lists[i][heads[i]][1])
+            heads[i] += 1
+        write(long[j][0], long[j][1], picks)
     return ids, mask
 
 
-def model_k7_cdf(indptr, indices, probs, seeds, keys, k, chunk=256):
+def _chunk_sums(w, tail_zeros):
+    """Each 256-edge chunk's weights summed from 0 in row order; with
+    ``tail_zeros`` the last chunk's missing edges are added as 0 (the long
+    rows' tile fold), which changes no sum."""
+    out = []
+    for c0 in range(0, len(w), CHUNK):
+        ct = F32(0)
+        for x in w[c0:c0 + CHUNK]:
+            ct = F32(ct + x)
+        for _ in range(CHUNK - len(w[c0:c0 + CHUNK]) if tail_zeros else 0):
+            ct = F32(ct + F32(0))
+        out.append(ct)
+    return out
+
+
+def model_k7_cdf(indptr, indices, probs, seeds, keys, k):
     n, E = len(indptr) - 1, len(indices)
     ids = np.full((len(seeds), k), INVALID, np.int32)
     mask = np.zeros((len(seeds), k), bool)
+    split = n > 0 and int(np.diff(indptr).max()) > SHORT_ROW
     for b, seed in enumerate(seeds):
         start, deg, valid = _extent(indptr, seed, n)
         w = probs[start:start + deg]
-        total = F32(0)
-        for c0 in range(0, deg, chunk):
-            ct = F32(0)
-            for x in w[c0:c0 + chunk]:
-                ct = F32(ct + x)
+        cts = _chunk_sums(w, tail_zeros=split and deg > SHORT_ROW)
+        total, befores = F32(0), []
+        for ct in cts:
+            befores.append(total)
             total = F32(total + ct)
         for t in range(k):
             target = F32(_uniform(keys[b, t]) * total)
-            found, pick, before = False, 0, F32(0)
-            for c0 in range(0, deg, chunk):
+            found, pick = False, 0
+            for c, (ct, before) in enumerate(zip(cts, befores)):
                 local = F32(target - before)
-                cs = F32(0)
-                for i in range(c0, min(deg, c0 + chunk)):
-                    cs = F32(cs + w[i])
-                    if local >= 0 and cs > local:
-                        found, pick = True, i
-                        break
-                if found:
+                if local >= 0 and ct > local:  # the first such chunk; walk it alone
+                    cs = F32(0)
+                    for i in range(c * CHUNK, min(deg, c * CHUNK + CHUNK)):
+                        cs = F32(cs + w[i])
+                        if cs > local:
+                            found, pick = True, i
+                            break
                     break
-                before = F32(before + cs)
             if valid and total > 0 and found:
                 ids[b, t] = indices[min(start + pick, E - 1)]
                 mask[b, t] = True
@@ -203,8 +308,8 @@ def model_k8(indptr, indices, probs, ap, ai, seeds, bits, gkeys, k, replace):
 def _edge_graph(k, seed=0, indptr_dtype=np.int32):
     """Rows of degree 0, 1, k, 2k, 2k + 1, 31, 32, 33, 300 (over chunks of
     256), an all-zero-weight row, a row of equal weights (ties), 1025 and
-    3000 (above K7's long-row limit: shared by a block), then random rows;
-    about a tenth of the weights 0."""
+    3000 (above K7's short-row limit: cut into slices across warps), then
+    random rows; about a tenth of the weights 0."""
     rng = np.random.default_rng(seed)
     degs = [0, 1, k, 2 * k, 2 * k + 1, 31, 32, 33, 300, 7, 9, 1025, 3000] + list(rng.integers(0, 40, 60))
     n = len(degs) + 5
@@ -237,7 +342,7 @@ def test_k7_topk_model_equals_plain(k, indptr_dtype):
     np.testing.assert_array_equal(mask, got.mask.numpy())
     assert not mask[9].any()  # the all-zero row
     assert mask[10].sum() == min(9, k)  # equal weights: keys differ by u alone
-    assert mask[11].all() and mask[12].all()  # the block-shared long rows
+    assert mask[11].all() and mask[12].all()  # the long rows, cut into slices
 
 
 @pytest.mark.parametrize("k", [1, 4, 33])
@@ -252,6 +357,185 @@ def test_k7_cdf_model_equals_plain_and_jax(k):
     jg = jgraph.HostGraph(indptr=hg.indptr, indices=hg.indices, probs=hg.probs).to_device()
     want = jsampling.sample_biased(jg, seeds, k, True, key)
     np.testing.assert_array_equal(ids, np.asarray(want.ids))
+
+
+def _slice_graph(case, seed):
+    """A graph for one case of K7's cut (SHORT_ROW = MIN_PIECE = 1024 edges),
+    with random rows beside it, a tenth of the weights 0 and padded seeds:
+    * ``limit``: rows of 1023, 1024 and 1025 edges (each side of the short-row
+      limit and of a range's length) and 2047-2049;
+    * ``many_slices``: a row of 40,000 edges, over 39 ranges;
+    * ``repeated_hub``: a 6,000-edge row whose node is 8 of the seeds;
+    * ``zero_slice``: a 5,000-edge row whose edges [1024, 3072) weigh 0,
+      two whole ranges of zero weights."""
+    rng = np.random.default_rng(seed)
+    head = {"limit": [1023, 1024, 1025, 2047, 2048, 2049], "many_slices": [40_000, 1500],
+            "repeated_hub": [6000, 1100], "zero_slice": [5000, 1200]}[case]
+    degs = head + list(rng.integers(0, 60, 30))
+    n = len(degs) + 3
+    dst = np.repeat(np.arange(len(degs)), degs)
+    w = np.abs(rng.standard_normal(len(dst))).astype(np.float32)
+    w[rng.random(len(w)) < 0.1] = 0
+    if case == "zero_slice":
+        w[1024:3072] = 0
+    indptr = np.concatenate([[0], np.cumsum(degs), np.full(3, len(dst))])
+    hg = tgraph.HostGraph(indptr=indptr, indices=rng.integers(0, n, len(dst)).astype(np.int32), probs=w)
+    seeds = np.concatenate([np.arange(len(head)), rng.integers(0, n, 20)])
+    if case == "repeated_hub":
+        seeds = np.concatenate([seeds, np.zeros(8, np.int64)])
+    seeds = rng.permutation(seeds).astype(np.int32)
+    seeds[::9] = INVALID
+    if case == "repeated_hub":
+        seeds[-1] = 0
+    return hg, seeds
+
+
+@pytest.mark.parametrize("case", ["limit", "many_slices", "repeated_hub", "zero_slice"])
+@pytest.mark.parametrize("replace", [False, True])
+def test_k7_slices_model_equals_plain_and_jax(case, replace):
+    """K7's model at the cut's edges equals the plain version and, on
+    injected keys, JAX's sample_biased; without replacement also when the
+    slice warps run last to first and when the ranges are 16 times shorter
+    (every long row in many pieces, up to MAX_PIECES)."""
+    k = 7
+    hg, seeds = _slice_graph(case, 7 + replace)
+    key = jax.random.key(len(case) + 10 * replace)
+    B = len(seeds)
+    keys = torch.from_numpy(np.asarray(jprng.random_keys(key, (B, k) if replace else (B,))).astype(np.int64))
+    got = tsampling.sample_biased_plain(hg.to_device("cpu"), torch.from_numpy(seeds), k, replace, keys)
+    model = model_k7_cdf if replace else model_k7_topk
+    ids, mask = model(*_np(hg), seeds, keys.numpy(), k)
+    np.testing.assert_array_equal(ids, got.ids.numpy())
+    np.testing.assert_array_equal(mask, got.mask.numpy())
+    if not replace:
+        for kw in ({"reverse": True}, {"min_piece": 64}, {"min_piece": 64, "reverse": True}):
+            again = model_k7_topk(*_np(hg), seeds, keys.numpy(), k, **kw)
+            np.testing.assert_array_equal(again[0], ids)
+            np.testing.assert_array_equal(again[1], mask)
+    jg = jgraph.HostGraph(indptr=hg.indptr, indices=hg.indices, probs=hg.probs).to_device()
+    want = jsampling.sample_biased(jg, seeds, k, replace, key)
+    np.testing.assert_array_equal(ids, np.asarray(want.ids))
+    np.testing.assert_array_equal(mask, np.asarray(want.mask))
+    assert mask.any()
+    if case == "repeated_hub":  # the hub's rows: one node, different row keys
+        hub = np.flatnonzero(seeds == 0)
+        assert len(hub) >= 8 and mask[hub].all() and len({tuple(r) for r in ids[hub]}) > 1
+
+
+def test_k7_slices_cover_the_cut():
+    """The line's ranges: at the bench's scale a range holds about U / W
+    edges; a long row is cut into at most MAX_PIECES pieces whatever W."""
+    P, piece, G = k7_line([226_746] * 64)
+    assert piece == -(-64 * 226_746 // SLICE_WARPS) and G <= SLICE_WARPS
+    P, piece, G = k7_line([226_746], workers=10**6, min_piece=1)
+    assert piece * (MAX_PIECES - 1) >= 226_746 and G <= MAX_PIECES
+
+
+def _collision(deg, lo_end):
+    """A JAX key whose row key (``random_keys(key, (1,))``, as JAX's
+    sample_biased draws it for one seed) gives a row of ``deg`` edges two
+    offsets i < lo_end <= j with the same 24 uniform bits: the key, the row
+    key and the pair."""
+    off = np.arange(deg, dtype=np.uint32)
+    for s in range(400):
+        jkey = jax.random.key(s)
+        rk = int(np.asarray(jprng.random_keys(jkey, (1,)))[0])
+        u24 = _mix32_np(np.uint32(rk) ^ _mix32_np(off)) >> np.uint32(8)
+        first = {}
+        for i in range(lo_end):
+            first.setdefault(int(u24[i]), i)
+        for j in range(lo_end, deg):
+            if int(u24[j]) in first:
+                return jkey, rk, first[int(u24[j])], j
+    raise AssertionError("no collision")
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k7_equal_keys_across_a_slice_boundary_take_the_lower_offset(k):
+    """Two edges of one long row, on the two sides of the first range
+    boundary (offset 1024), draw the same uniform and carry the same
+    weight, far above the others': their keys are equal, and the lower
+    offset comes first, in the model (whichever slice warp runs first),
+    the plain version and JAX, all on JAX's row key."""
+    deg = 3000
+    jkey, rk, i, j = _collision(deg, MIN_PIECE)
+    w = np.full(deg, 1e-30, np.float32)
+    w[[i, j]] = 1.0
+    hg = tgraph.HostGraph(indptr=np.array([0, deg, deg], np.int64),
+                          indices=(np.arange(deg) % 2).astype(np.int32) + 5 * (np.arange(deg) == j), probs=w)
+    seeds = np.zeros(1, np.int32)
+    keys = np.array([rk], np.int64)
+    assert _row_keys(0, deg, rk, w, deg)[i] == _row_keys(0, deg, rk, w, deg)[j]
+    got = tsampling.sample_biased_plain(hg.to_device("cpu"), torch.from_numpy(seeds), k, False, torch.from_numpy(keys))
+    want = [hg.indices[i], hg.indices[j]][:k]
+    assert got.ids.numpy()[0].tolist() == want
+    for reverse in (False, True):
+        ids, mask = model_k7_topk(*_np(hg), seeds, keys, k, reverse=reverse)
+        assert ids[0].tolist() == want and mask.all()
+    jg = jgraph.HostGraph(indptr=hg.indptr, indices=hg.indices, probs=hg.probs).to_device()
+    jout = jsampling.sample_biased(jg, seeds, k, False, jkey)
+    assert np.asarray(jout.ids)[0].tolist() == want and np.asarray(jout.mask).all()
+
+
+def _sort_desc(v):
+    """csrc/sampling.cu sort_desc on 32 lanes: the bitonic network as written
+    (lane ^ stride the partner, keep_max by the two lane bits)."""
+    v = list(v)
+    size = 2
+    while size <= 32:
+        stride = size >> 1
+        while stride > 0:
+            o = [v[ln ^ stride] for ln in range(32)]
+            v = [max(a, b) if ((ln & size) == 0) == ((ln & stride) == 0) else min(a, b)
+                 for ln, (a, b) in enumerate(zip(v, o))]
+            stride >>= 1
+        size <<= 1
+    return v
+
+
+def _merge_sorted(a, b):
+    """csrc/sampling.cu merge_sorted: a against b reversed, then five
+    half-cleaner stages."""
+    v = [max(x, b[31 - ln]) for ln, x in enumerate(a)]
+    stride = 16
+    while stride > 0:
+        o = [v[ln ^ stride] for ln in range(32)]
+        v = [max(x, y) if (ln & stride) == 0 else min(x, y) for ln, (x, y) in enumerate(zip(v, o))]
+        stride >>= 1
+    return v
+
+
+@pytest.mark.parametrize("filled", [0, 5, 32])
+def test_k7_batch_insert_sorts_and_merges(filled):
+    """The register list's batch insert: sorting a step's 32 packed
+    candidates (0 where a lane has none) across the lanes and merging them
+    into the sorted list keeps the 32 largest of both, descending, as
+    inserting them one by one does."""
+    rng = np.random.default_rng(filled)
+    for _ in range(20):
+        keys = -np.abs(rng.standard_normal(64)).astype(np.float32)
+        offs = rng.permutation(1000)[:64]
+        packed = [_pack(x, int(o)) for x, o in zip(keys, offs)]
+        lst = sorted(packed[:filled], reverse=True) + [0] * (32 - filled)
+        cand = [c if rng.random() < 0.7 else 0 for c in packed[32:]]
+        assert _sort_desc(cand) == sorted(cand, reverse=True)
+        assert _merge_sorted(lst, _sort_desc(cand)) == sorted(lst + cand, reverse=True)[:32]
+
+
+def test_k7_merge_packing_is_lax_top_k_order():
+    """The merge's 64-bit entries order as ``beats`` does (larger key, then
+    lower offset), equal keys included, and the shared bound's order bits
+    round-trip every key, -inf too."""
+    rng = np.random.default_rng(3)
+    keys = np.concatenate([-np.abs(rng.standard_normal(300)).astype(np.float32) * 10,
+                           np.full(20, -0.5, np.float32), [F32(-np.inf), F32(-0.0), F32(-1e-38)]])
+    offs = rng.permutation(len(keys))
+    by_pack = sorted(range(len(keys)), key=lambda i: _pack(keys[i], offs[i]), reverse=True)
+    by_beats = sorted(range(len(keys)), key=lambda i: (-float(keys[i]), offs[i]))
+    assert by_pack == by_beats
+    for x in keys:
+        assert _from_ord(_ord(x)) == x
+    assert _ord(F32(-np.inf)) == ORD_NEG_INF and all(_pack(x, o) > 0 for x, o in zip(keys, offs))
 
 
 @pytest.mark.parametrize("k", [1, 3, 10])
@@ -331,6 +615,45 @@ def test_tensors_off_the_cpu_never_take_the_plain_version(fn):
     assert getattr(tsampling, fn).launches == 0
 
 
+@pytest.mark.parametrize("max_degree", [1024, 1025])
+@pytest.mark.parametrize("replace", [False, True])
+def test_k7_wrapper_passes_a_workspace_sized_from_the_host(monkeypatch, replace, max_degree):
+    """Past the device checks (patched out: no card), sample_biased asks K7
+    for its workspace from B, k and graph.max_degree alone, takes it from
+    torch's allocator (none when the kernel needs none: no row above the
+    short-row limit), passes it with the graph's max_degree on the seeds'
+    stream, and counts one launch a call."""
+    import dataclasses
+
+    hg, _ = _edge_graph(3)
+    g = dataclasses.replace(_meta_graph(hg, alias=False), max_degree=max_degree)
+    need = 0 if max_degree <= SHORT_ROW else 4096
+    calls = {}
+
+    class Lib:
+        def dg_sample_biased_workspace(self, B, k, md, rep, out):
+            calls["workspace"] = (B, k, md, rep)
+            out._obj.value = need
+            return 0
+
+        def dg_sample_biased(self, *args):
+            calls["run"] = args
+            return 0
+
+    monkeypatch.setattr(tsampling, "_lib", Lib)
+    monkeypatch.setattr(tsampling, "_check_weighted", lambda *a, **kw: None)
+    monkeypatch.setattr(tsampling, "stream_of", lambda t: 7)
+    seeds = torch.empty(10, dtype=torch.int32, device="meta")
+    keys = torch.zeros((10, 3) if replace else (10,), dtype=torch.int64).to("meta")
+    before = tsampling.sample_biased.launches
+    out = tsampling.sample_biased(g, seeds, 3, replace, keys)
+    assert calls["workspace"] == (10, 3, max_degree, int(replace))
+    assert calls["run"][8:] == (10, 3, g.num_nodes, g.num_edges, int(replace), max_degree,
+                                None if need == 0 else 0, need, 7)
+    assert tsampling.sample_biased.launches == before + 1 and out.ids.shape == (10, 3)
+    tsampling.sample_biased.launches = before
+
+
 @pytest.mark.parametrize(
     "case", ["no_alias", "f64_probs", "k_too_large", "short_probs"],
 )
@@ -387,6 +710,24 @@ def test_the_weighted_kernels_are_built_with_the_others():
     for name in ("dg_sample_biased(", "dg_sample_biased_alias("):
         assert name in src
     assert "--use_fast_math" not in build.NVCC_FLAGS  # log and the divisions stay exact
+
+
+def test_k7_list_variants_build_libraries_of_their_own(monkeypatch):
+    """bench_k7's variants: each -D set is a library of its own, and the
+    default build is the one the wrappers load."""
+    from dist_gnn_tpu_torch.scripts import bench_k7
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+
+    src = (build.CSRC_DIR / "sampling.cu").read_text()
+    paths = {build._lib_path("sampling", d) for d in bench_k7.VARIANTS.values()}
+    assert len(paths) == len(bench_k7.VARIANTS) and build._lib_path("sampling") in paths
+    assert bench_k7.VARIANTS["reg_batch"] == ()
+    for defines in bench_k7.VARIANTS.values():
+        for d in defines:
+            assert f"#ifndef {d[2:].split('=')[0]}" in src
+        cmd = build._command(build.CSRC_DIR / "sampling.cu", Path("out.so"), defines)
+        assert cmd[cmd.index("-o") - len(defines):cmd.index("-o")] == list(defines)
 
 
 def test_k7_fast_log_filter_never_drops_a_candidate():
