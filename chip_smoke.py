@@ -117,11 +117,17 @@ weights from a seed.  Phases, one JSON line each:
     and the hub as 20 seeds, a 400,000-edge row past the long-row
     kernel's shared-memory table, also with ``max_degree`` understated at
     1,024 and 2,048 — at the three hops of a weighted request and
-    at a hop of 64 seeds that are all the 226,746-edge row: ids and mask
+    at a hop of 64 seeds that are all the 226,746-edge row (K8 too, with
+    ``scripts/bench_k8.py``'s ``shortfall``, hop 2's long rows with 9/10
+    of each row's weight on one edge so that every row falls short, and
+    ``k40``, the shared-memory set): ids and mask
     equal except rows whose k-th and (k+1)-th plain Gumbel keys lie within
-    2 ulp, counted and printed; no zero-weight edge drawn; event, device
-    and plain ms and the byte bound, K7's in both modes and per hop; one
-    K7 call of each mode under ``torch.cuda.set_sync_debug_mode("error")``);
+    2 ulp, counted and printed, and K8's overflow equal; no zero-weight
+    edge drawn; event, device and plain ms and the byte bound, K7's and
+    K8's in both modes and per hop (K8's bound from ``bench_k8.k8_bytes``:
+    a long row's draws up to its k-th first occurrence, with
+    ``bytes_all_draws``, every draw charged, beside it); one K7 and one K8
+    call of each mode under ``torch.cuda.set_sync_debug_mode("error")``);
     training_sage_biased (the SAGE bench config on the
     weighted graph with alias tables under the port's ``tune_sampler_for``
     caps: 8 timed steps, K8 three times a step, the overflow counters,
@@ -950,7 +956,7 @@ def main() -> int:
     from dist_gnn_tpu_torch.parallel.mesh import Mesh, initialize_distributed, launch, make_mesh
     from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
-    from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_sampler
+    from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_k8, bench_sampler
     from dist_gnn_tpu_torch.training import HostTierTrainer, Trainer, masked_nll_loss
     from dist_gnn_tpu_torch.training.pipeline import batch_keys
     from dist_gnn_tpu_torch.utils import native
@@ -1329,26 +1335,13 @@ def main() -> int:
         idx = torch.clamp(torch.searchsorted(pos_pairs, pair), max=pos_pairs.numel() - 1)
         return bool((pos_pairs[idx] == pair).all())
 
-    def sectors(base_ptr, elem, positions):
-        return int(torch.unique((base_ptr + elem * positions) // 32).numel())
-
-    def span_sectors(base_ptr, elem, lo, n):
-        """Distinct 32-byte sectors of the element spans [lo, lo + n)."""
-        lo, n = lo[n > 0], n[n > 0]
-        if lo.numel() == 0:
-            return 0
-        first = (base_ptr + elem * lo) // 32
-        last = (base_ptr + elem * (lo + n) - 1) // 32
-        s0 = int(first.min())
-        diff = torch.zeros(int(last.max()) - s0 + 2, dtype=torch.int32, device=cuda)
-        diff.index_add_(0, first - s0, torch.ones_like(first, dtype=torch.int32))
-        diff.index_add_(0, last - s0 + 1, -torch.ones_like(last, dtype=torch.int32))
-        return int((torch.cumsum(diff, 0) > 0).sum())
+    sectors, span_sectors = bench_k8.sectors, bench_k8.span_sectors
 
     rkgen = torch.Generator(device=cuda).manual_seed(14)
     k7_hops, k8_hops = [], []
     k7_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "replace_ms", "replace_device_ms"), 0.0)
-    k8_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
+    k8_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "replace_ms", "replace_device_ms",
+                            "replace_bound_ms", "bound_all_draws_ms"), 0.0)
     ip_ptr, ip_sz = graph.indptr.data_ptr(), graph.indptr.element_size()
     for i, (blk, kk) in enumerate(zip(blocks_w, reversed(FAN_OUT))):
         s_hop = blk.seeds
@@ -1381,43 +1374,36 @@ def main() -> int:
                     lambda: sampling.sample_biased(graph_k7, s_hop, kk, True, keys7[True]), "k7_"),
                 "plain_ms": cuda_time_ms(lambda: sampling.sample_biased_plain(graph_k7, s_hop, kk, False, key7),
                                          iters=3, warmup=1)}
-        # K8: both modes checked, without replacement timed
+        # K8: both modes checked and timed
+        keys8 = {}
         for replace in (True, False):
-            key8 = alias_key_set(B, kk, replace, rkgen)
+            key8 = keys8[replace] = alias_key_set(B, kk, replace, rkgen)
             got8 = sampling.sample_biased_alias(graph_w, s_hop, kk, replace, key8)
             n8 = compare_weighted(f"K8 hop {i} replace={replace}", got8,
                                   sampling.sample_biased_alias_plain(graph_w, s_hop, kk, replace, key8),
                                   None if replace else k8_tie(indptr64, probs_np, s_np, key8[1].cpu(), kk))
             check(positive_only(s_hop, got8), f"K8 hop {i} replace={replace}: drew a zero-weight edge")
-        pos8, m8, _ = sampling.sample_biased_alias_positions(graph_w, s_hop, kk, False, key8)
-        # what K8 reads: a short row's weights, and its keys only at offsets
-        # below the degree with a positive weight; a long row's 4k bit
-        # pairs, alias_prob at each draw, and alias_idx only at the draws
-        # whose uniform is not below alias_prob (the rejected ones)
-        dense = valid & (dg <= 2 * kk)
-        sparse = valid & (dg > 2 * kk)
-        bits8, gum8 = key8
-        draws = lo[sparse][:, None] + (bits8[0][sparse] % dg[sparse][:, None])
-        rejected = ~(prng.bits_to_uniform(bits8[1][sparse]) < graph_w.alias_prob[draws])
-        offs = torch.arange(2 * kk, device=cuda)
-        key_read = dense[:, None] & (offs[None, :] < dg[:, None])
-        key_read &= probs_dev[torch.where(key_read, lo[:, None] + offs, 0)] > 0
-        key_pos = (torch.arange(B, device=cuda)[:, None] * (2 * kk) + offs)[key_read]
-        bit_pos = (sparse.nonzero().flatten()[:, None] * (4 * kk) + torch.arange(4 * kk, device=cuda)).flatten()
-        bytes8 = (span_sectors(probs_dev.data_ptr(), 4, lo[dense], dg[dense])
-                  + sectors(gum8.data_ptr(), 8, key_pos)
-                  + sectors(bits8.data_ptr(), 8, torch.cat([bit_pos, bit_pos + B * 4 * kk]))
-                  + sectors(graph_w.alias_prob.data_ptr(), 4, draws.flatten())
-                  + sectors(graph_w.alias_idx.data_ptr(), 4, draws[rejected])
-                  + sectors(graph.indices.data_ptr(), 4, pos8[m8]) + ptr_sec) * 32 \
-            + B * 4 + B * kk * 5 + 4
+        # what K8's function reads (bench_k8.k8_bytes): a short row's weights
+        # and its keys at positive weights; a long row's bit pairs, alias_prob
+        # and (where rejected) alias_idx for its draws up to its k-th first
+        # occurrence (bytes_all_draws: all 4k of them)
+        b8 = bench_k8.k8_bytes(graph_w, s_hop, kk, False, key8)
+        b8r = bench_k8.k8_bytes(graph_w, s_hop, kk, True, keys8[True])
+
+        def k8_call(r):
+            return lambda: sampling.sample_biased_alias(graph_w, s_hop, kk, r, keys8[r])
+
         hop8 = {"hop": i, "B": B, "k": kk, "near_tie_rows": n8, "valid_slots": int(got8.mask.sum()),
-                "dense_rows": int(dense.sum()), "sparse_rows": int(sparse.sum()), "overflow": int(got8.overflow),
-                "keys_read": int(key_read.sum()), "draws": int(draws.numel()),
-                "alias_idx_reads": int(rejected.sum()), "bytes": bytes8, "bound_ms": bytes8 / HBM_BYTES_PER_S * 1e3,
-                "ms": cuda_time_ms(lambda: sampling.sample_biased_alias(graph_w, s_hop, kk, False, key8)),
-                "device_ms": device_ms(lambda: sampling.sample_biased_alias(graph_w, s_hop, kk, False, key8),
-                                             "sample_biased_alias_kernel"),
+                "dense_rows": b8["short_rows"], "sparse_rows": b8["drawn_rows"], "overflow": int(got8.overflow),
+                "keys_read": b8["keys_read"], "draws": b8["draws_all"], "draws_needed": b8["draws_needed"],
+                "alias_idx_reads": b8["alias_idx_reads"], "bytes": b8["bytes"],
+                "bytes_all_draws": b8["bytes_all_draws"], "bound_ms": b8["bound_ms"],
+                "bound_all_draws_ms": b8["bound_all_draws_ms"],
+                "ms": cuda_time_ms(k8_call(False)),
+                "device_ms": device_ms(k8_call(False), "sample_biased_alias_kernel"),
+                "replace_bytes": b8r["bytes"], "replace_bound_ms": b8r["bound_ms"],
+                "replace_ms": cuda_time_ms(k8_call(True)),
+                "replace_device_ms": device_ms(k8_call(True), "sample_biased_alias_kernel"),
                 "plain_ms": cuda_time_ms(lambda: sampling.sample_biased_alias_plain(graph_w, s_hop, kk, False, key8),
                                          iters=3, warmup=1)}
         torch.cuda.synchronize()
@@ -1458,23 +1444,44 @@ def main() -> int:
             k7_hub["bytes"] = hub_bytes
             k7_hub["bound_ms"] = hub_bytes / HBM_BYTES_PER_S * 1e3
             k7_hub["edge_weights_ms"] = k7_hub["edges"] * 4 / HBM_BYTES_PER_S * 1e3
-    # no K7 call synchronizes: a hop with rows above the short-row limit (a
-    # workspace, three kernels), both modes, under the sync debug mode
+    # K8 on bench_k8's all_hub, shortfall (every row short of k: all 4k
+    # draws read, overflow counted) and k40 (the shared-memory set) cases,
+    # both modes, against the plain version: ids, mask and overflow
+    k8_cases = {}
+    for name, (g8, s8, kk) in bench_k8.cases(cuda, hg, probs_np, graph_w, [b.seeds for b in blocks_w]).items():
+        if not name.startswith("hop"):
+            for replace in (False, True):
+                key8 = alias_key_set(s8.shape[0], kk, replace, rkgen)
+                got8 = sampling.sample_biased_alias(g8, s8, kk, replace, key8)
+                tie8 = None if replace or g8 is not graph_w else \
+                    k8_tie(indptr64, probs_np, s8.cpu().numpy(), key8[1].cpu(), kk)
+                n8 = compare_weighted(f"K8 {name} replace={replace}", got8,
+                                      sampling.sample_biased_alias_plain(g8, s8, kk, replace, key8), tie8)
+                k8_cases[f"{name}_{'replace' if replace else 'distinct'}"] = {
+                    "B": s8.shape[0], "k": kk, "near_tie_rows": n8, "valid_slots": int(got8.mask.sum()),
+                    "overflow": int(got8.overflow)}
+    check(k8_cases["shortfall_distinct"]["overflow"] > 0, "K8 shortfall case: no row fell short")
+    # no K7 or K8 call synchronizes: a hop with rows above K7's short-row
+    # limit (a workspace, three kernels), both modes, under the sync debug mode
     s_sync, k_sync = blocks_w[1].seeds, tuple(reversed(FAN_OUT))[1]
     sync_keys = {r: prng.random_keys(rkgen, (s_sync.shape[0], k_sync) if r else (s_sync.shape[0],), cuda)
                  for r in (False, True)}
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for r in (False, True):
-            sampling.sample_biased(graph_k7, s_sync, k_sync, r, sync_keys[r])
-        k7_sync = None
-    except RuntimeError as err:
-        k7_sync = str(err)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    check(k7_sync is None, f"a K7 call synchronized: {k7_sync}")
+    sync_keys8 = {r: alias_key_set(s_sync.shape[0], k_sync, r, rkgen) for r in (False, True)}
+    synced = {}
+    for name, call in (("K7", lambda r: sampling.sample_biased(graph_k7, s_sync, k_sync, r, sync_keys[r])),
+                       ("K8", lambda r: sampling.sample_biased_alias(graph_w, s_sync, k_sync, r, sync_keys8[r]))):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for r in (False, True):
+                call(r)
+            synced[name] = None
+        except RuntimeError as err:
+            synced[name] = str(err)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        check(synced[name] is None, f"a {name} call synchronized: {synced[name]}")
     k7 = {"name": "sample_biased", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
           "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:671",
           "max_abs_err": 0.0, **k7_sum, "bound_by": "bytes", "library_ms": None,
@@ -1486,15 +1493,18 @@ def main() -> int:
           "all_hub": k7_hub}
     k8 = {"name": "sample_biased_alias", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
           "replaces": "none: no Pallas counterpart; JAX's jnp sampler dist_gnn_tpu/ops/sampling.py:764",
-          "max_abs_err": 0.0, **k8_sum, "bound_by": "bytes", "library_ms": None}
+          "max_abs_err": 0.0, **k8_sum, "bound_by": "bytes", "library_ms": None,
+          "hops": [{key_: h[key_] for key_ in ("hop", "B", "k", "ms", "device_ms", "bound_ms", "bytes_all_draws",
+                                               "replace_ms", "replace_device_ms", "replace_bound_ms")}
+                   for h in k8_hops]}
     emit({"phase": "kernels_biased", "times_are": "sums over the three hops of one weighted request "
           "(ms, device_ms, plain_ms without replacement; replace_ms, replace_device_ms with it; both modes "
-          "checked)", "k7_hops": k7_hops, "k8_hops": k8_hops,
+          "checked)", "k7_hops": k7_hops, "k8_hops": k8_hops, "k8_cases": k8_cases,
           "edge_rows": w_edge_rows, "k7_big_rows": big_rows, "near_tie_rows": w_ties, "exact_but_near_ties": True,
           "zero_weight_edges_drawn": 0, "library": "none: no one PyTorch call samples a weighted CSC graph",
-          "k7_all_hub": k7_hub, "k7_synchronized": False,
+          "k7_all_hub": k7_hub, "k7_synchronized": False, "k8_synchronized": False,
           "k7": {k: k7[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms", "replace_ms", "replace_device_ms")},
-          "k8": {k: k8[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms")}, **card})
+          "k8": {k: k8[k] for k in k8_sum}, **card})
 
     # ---- 4. K1, K2 and K3 against their plain versions --------------------
     safe = torch.where(blocks[-1].frontier_mask, blocks[-1].frontier, 0)

@@ -270,16 +270,62 @@ int launch_sample_uniform(const void* indptr, const int32_t* indices, const int3
 //   the slots it could not fill are masked and their number,
 //   sum(max(k - distinct, 0)), is added to a device counter (overflow)
 //   that nothing reads back inside the hop.
-// Bound: bytes.  A long row's T draws each read one 8-byte (prob, alias)
-// pair at a random offset (O(B * 4k) dependent reads), a short row its
-// <= 2k weights once, the picks one index each.  Design: one warp per
-// seed row; the T draws (or the <= 2k keys) go to shared memory, each
-// lane tests its draws against the earlier ones (T^2 / 64 compares a lane)
-// and a ballot ranks the first occurrences; a short row's keys are ranked
-// by counting (4k^2 / 32 compares a lane).
+// Bound: bytes, counted from what the function needs
+// (scripts/bench_k8.py k8_bytes): a long row's bit pairs, alias_prob and,
+// where a draw is rejected, alias_idx for its draws up to and including
+// its k-th first occurrence (all T when it falls short: at degrees near
+// 4k and k = 15 about 17 of the 60), a short row's weights and, at its
+// positive weights, its keys, the picks' indices, the seeds and indptr
+// pairs, and ids and mask written once.  Each needed draw is two
+// dependent reads (its bits, then the table at a random position), so a
+// row's time is a chain of DRAM latencies, and the design shortens it.
+// Design: a group of G lanes a row: with replacement the least of 8, 16
+// and 32 that holds k, so a warp takes 4 rows at k = 5 and 2 at k = 10 or
+// 15; without, a warp, whose first round of 32 draws then holds the k-th
+// first occurrence of nearly every row at k <= 15 (the sized groups there
+// too, or rounds of 16 or 24 draws in a warp, took more rounds: up to
+// 1.45x the device time on scripts/bench_k8.py's cases, PERF.md).  Blocks
+// of 1 to 8 warps, as few as put a warp on every SM, so a hop of 512 rows
+// reaches 128 SMs or more.  A valid row's first draws' bits load beside
+// its indptr pair (DG_K8_PREFETCH), and a draw's alias_idx beside its
+// alias_prob, as a short row's key beside its weight (DG_K8_PAIRED), so no
+// load waits on another of the same draw.
+// A long row (deg > 2k) reads its draws in draw order, in rounds: a round
+// takes the next min(G, T - t) draws, one a lane, resolves them, takes the
+// lowest lane of each value's match set (__match_any_sync) as the round's
+// first, drops the values that an earlier round kept, ranks the rest by a
+// ballot's popcount after the got kept so far, and keeps those of rank
+// below k.  The loop ends after the round that holds the k-th first
+// occurrence: no round starts after it, and that round's lanes past it
+// (fewer than G) read their draws, which the bound does not charge.
+// (Rounds of at most k - got draws would read none past it, but end a row
+// in a chain of one-draw rounds, each two dependent reads: 1.08-2.26x the
+// device time on scripts/bench_k8.py's cases, PERF.md.)  The kept offsets live, for
+// k <= 32 (DG_K8_REG_MAX_K), in registers, lane i the i-th: a round
+// compares its draws with them by got shuffles and appends its firsts by
+// one shuffle from the lane of the q-th new first (nth_set); above, in an
+// open-addressed set of 2^ceil(log2 2k) slots in shared memory (a lookup
+// expects O(1) probes, an insert is an atomicCAS), the picks in order
+// beside it.  No draw is compared with every earlier draw.
+// Exactness: before the last round every first occurrence so far was kept
+// (a round that finds k - got or more firsts is the last), so a draw is
+// the first of its value in the row exactly when it is not among the kept
+// offsets and is the first of its value within its round, and its rank
+// is got plus the firsts of lower lanes: the order and ranks of the plain
+// version's first occurrences.  The draws after the k-th first occurrence
+// cannot change ids, mask or overflow, since the plain version takes only
+// the first k first occurrences and counts a shortfall only when fewer
+// than k exist; so ending there is exact.  A row that runs out of its T
+// draws keeps what it has and adds k - got to overflow (summed over a
+// warp's rows, one atomicAdd a warp).  The picks' indices are read once,
+// at the row's end, and written with the mask.
+// A short row (0 < deg <= 2k) writes its <= 2k Gumbel keys to shared
+// memory and ranks them by counting (2k / G keys a lane, 2k compares a
+// key); a row of degree 0 (or an INVALID_ID seed) writes its masked slots
+// and nothing else.
 //
-// Both kernels take k <= kMaxK (the wrapper checks): a warp's list or
-// draws live in at most 16 KB of shared memory.
+// Both kernels take k <= kMaxK (the wrapper checks): K7's list lives in at
+// most 16 KB of shared memory a warp, K8's set and picks in 20 KB.
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 1024;
@@ -1199,63 +1245,170 @@ k7_cdf_long_kernel(const int32_t* __restrict__ indices, const float* __restrict_
   }
 }
 
-// One alias draw: an offset within the row.
-__device__ __forceinline__ int32_t alias_draw(uint32_t b0, uint32_t b1, int32_t deg, int64_t start,
+// K8's choices, settable at build time (-D) so that scripts/bench_k8.py
+// --variants can time them against each other
+#ifndef DG_K8_REG_MAX_K
+#define DG_K8_REG_MAX_K 32  // k up to this keeps a long row's picks in registers (0: the shared set for every k)
+#endif
+#ifndef DG_K8_PAIRED
+#define DG_K8_PAIRED 1  // 0: alias_idx only after a rejection, a short row's key only after a positive weight
+#endif
+#ifndef DG_K8_PREFETCH
+#define DG_K8_PREFETCH 1  // 0: a row's first bits load after its indptr pair
+#endif
+constexpr int kK8RegMaxK = DG_K8_REG_MAX_K;
+static_assert(kK8RegMaxK >= 0 && kK8RegMaxK <= 32, "the register list holds at most a lane an entry");
+constexpr unsigned long long kSetEmpty = ~0ull;  // an empty slot of K8's set (a value is below 2^32)
+
+// K8's lanes a row: with replacement the least of 8, 16 and 32 that holds
+// k; without, a warp.
+inline int k8_group(int k, int replace) { return replace ? (k <= 8 ? 8 : (k <= 16 ? 16 : 32)) : 32; }
+
+// log2 of K8's set slots: the least power of two >= 2k (0 when the picks
+// stay in registers).
+inline int k8_set_log(int k) {
+  if (k <= kK8RegMaxK) return 0;
+  int l = 1;
+  while ((1 << l) < 2 * k) ++l;
+  return l;
+}
+
+// A group's shared memory without replacement, a multiple of 8 bytes: a
+// short row's 2k keys, or in the set's place (which is larger) the set and
+// then the picks.
+inline size_t k8_group_bytes(int k, int replace) {
+  if (replace) return 0;
+  const int l = k8_set_log(k);
+  const size_t bytes = l ? ((size_t)8 << l) + (size_t)4 * k : (size_t)8 * k;
+  return (bytes + 7) & ~(size_t)7;
+}
+
+// One alias draw from the bits (x0, x1): an offset within the row.
+__device__ __forceinline__ int32_t alias_draw(uint32_t x0, uint32_t x1, int32_t deg, int64_t start,
                                               const float* __restrict__ alias_prob,
                                               const int32_t* __restrict__ alias_idx,
                                               int64_t n_edges) {
-  const uint32_t j = b0 % (uint32_t)(deg > 1 ? deg : 1);
+  const uint32_t j = x0 % (uint32_t)(deg > 1 ? deg : 1);
   const int64_t pos = clamp_pos(start + (int64_t)j, n_edges);
-  return bits_to_uniform(b1) < alias_prob[pos] ? (int32_t)j : alias_idx[pos];
+  const float p = alias_prob[pos];
+#if DG_K8_PAIRED
+  const int32_t a = alias_idx[pos];
+  return bits_to_uniform(x1) < p ? (int32_t)j : a;
+#else
+  return bits_to_uniform(x1) < p ? (int32_t)j : alias_idx[pos];
+#endif
 }
 
-// K8: the alias sampler, one warp a row.
+// The position of the n-th set bit of m (from 0), which has more than n.
+__device__ __forceinline__ int nth_set(unsigned m, int n) {
+  int p = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1)
+    if (__popc(m & ((1u << (p + w)) - 1u)) <= n) p += w;
+  return p;
+}
+
+// K8's set: open addressing, linear probing, 2^lg slots, at most half
+// full, so a lookup ends at the value or an empty slot.
+__device__ __forceinline__ unsigned set_slot(int32_t d, int lg) {
+  return ((uint32_t)d * kGolden) >> (32 - lg);
+}
+
+__device__ __forceinline__ bool set_has(const unsigned long long* set, int lg, int32_t d) {
+  const unsigned long long v = (uint32_t)d;
+  const unsigned m = (1u << lg) - 1u;
+  for (unsigned i = set_slot(d, lg);; i = (i + 1) & m) {
+    const unsigned long long e = set[i];
+    if (e == v) return true;
+    if (e == kSetEmpty) return false;
+  }
+}
+
+__device__ __forceinline__ void set_add(unsigned long long* set, int lg, int32_t d) {
+  const unsigned long long v = (uint32_t)d;
+  const unsigned m = (1u << lg) - 1u;
+  for (unsigned i = set_slot(d, lg);; i = (i + 1) & m)
+    if (atomicCAS(set + i, kSetEmpty, v) == kSetEmpty) return;
+}
+
+// K8: the alias sampler, a group of G lanes a row (header).
 template <typename IP>
-__global__ void sample_biased_alias_kernel(
+__global__ void __launch_bounds__(kMaxWarps * 32)
+sample_biased_alias_kernel(
     const IP* __restrict__ indptr, const int32_t* __restrict__ indices,
     const float* __restrict__ probs, const float* __restrict__ alias_prob,
     const int32_t* __restrict__ alias_idx, const int32_t* __restrict__ seeds,
     const int64_t* __restrict__ bits, const int64_t* __restrict__ gkeys,
     int32_t* __restrict__ ids, uint8_t* __restrict__ mask, int32_t* __restrict__ shortfall,
-    int64_t B, int k, int64_t n_nodes, int64_t n_edges, int replace) {
-  extern __shared__ float smem_f[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wpb = blockDim.x >> 5;
+    int64_t B, int k, int64_t n_nodes, int64_t n_edges, int replace, int G, int set_log,
+    int group_bytes) {
+  extern __shared__ unsigned long long smem_g[];
+  const int lane = threadIdx.x & 31, gl = lane & (G - 1), base = lane - gl;
+  const unsigned gmask = (G == 32 ? kFull : (1u << G) - 1u) << base;
+  const unsigned below = (1u << lane) - 1u;
+  const int gpb = blockDim.x / G;
   const int T = replace ? k : 4 * k, D = 2 * k;
-  const int64_t plane = B * (int64_t)T;  // bits[1] follows bits[0]
-  float* sk = smem_f + (size_t)warp * T;  // a short row's keys, or ...
-  int32_t* sd = reinterpret_cast<int32_t*>(sk);  // ... a long row's draws
-  for (int64_t b = (int64_t)blockIdx.x * wpb + warp; b < B; b += (int64_t)gridDim.x * wpb) {
+  const int n0 = min(G, T);  // the first round's draws, or the first slots with replacement
+  char* gs = reinterpret_cast<char*>(smem_g) + (size_t)(threadIdx.x / G) * group_bytes;
+  float* sk = reinterpret_cast<float*>(gs);                               // a short row's keys
+  unsigned long long* set = reinterpret_cast<unsigned long long*>(gs);    // a long row's set (k > 32)
+  int32_t* picks = reinterpret_cast<int32_t*>(gs + ((size_t)8 << set_log));  // ... and its picks
+  int32_t short_sum = 0;  // this group's shortfall, at its lane 0
+  for (int64_t b = (int64_t)blockIdx.x * gpb + threadIdx.x / G; b < B; b += (int64_t)gridDim.x * gpb) {
+    const int64_t* b0 = bits + b * T;
+    const int64_t* b1 = b0 + B * (int64_t)T;  // bits[1] follows bits[0]
+    const int32_t seed = seeds[b];
+    uint32_t x0 = 0, x1 = 0;  // the bits of draw gl, loaded beside the indptr pair
+#if DG_K8_PREFETCH
+    if (seed != kInvalid && gl < n0) {
+      x0 = (uint32_t)b0[gl];
+      x1 = (uint32_t)b1[gl];
+    }
+#endif
     int64_t start;
     int32_t deg;
     bool valid;
-    row_extent(indptr, seeds[b], n_nodes, start, deg, valid);
-    const int64_t* b0 = bits + b * T;
-    const int64_t* b1 = b0 + plane;
+    row_extent(indptr, seed, n_nodes, start, deg, valid);
     if (replace) {
       const bool take = valid && deg > 0;
-      for (int t = lane; t < k; t += 32) {
+      for (int t = gl; t < k; t += G) {
         int32_t id = kInvalid;
         if (take) {
-          const int32_t sel = alias_draw((uint32_t)b0[t], (uint32_t)b1[t], deg, start, alias_prob,
-                                         alias_idx, n_edges);
-          id = indices[clamp_pos(start + sel, n_edges)];
+          if (!DG_K8_PREFETCH || t != gl) {
+            x0 = (uint32_t)b0[t];
+            x1 = (uint32_t)b1[t];
+          }
+          id = indices[clamp_pos(start + alias_draw(x0, x1, deg, start, alias_prob, alias_idx, n_edges),
+                                 n_edges)];
         }
         ids[b * k + t] = id;
         mask[b * k + t] = take;
       }
       continue;
     }
+    if (deg == 0) {  // no edge, or a padded seed: every slot masked
+      for (int j = gl; j < k; j += G) {
+        ids[b * k + j] = kInvalid;
+        mask[b * k + j] = 0;
+      }
+      continue;
+    }
     if (deg <= D) {  // the exact Gumbel top-k over the short row
-      for (int o = lane; o < D; o += 32) {
+      for (int o = gl; o < D; o += G) {
         float key = neg_inf();
         if (o < deg) {
           const float w = probs[clamp_pos(start + o, n_edges)];
+#if DG_K8_PAIRED
+          const uint32_t g = (uint32_t)gkeys[b * D + o];
+          if (w > 0.f) key = gumbel_key(g, w);
+#else
           if (w > 0.f) key = gumbel_key((uint32_t)gkeys[b * D + o], w);
+#endif
         }
         sk[o] = key;
       }
-      __syncwarp();
-      for (int o = lane; o < D; o += 32) {
+      __syncwarp(gmask);
+      for (int o = gl; o < D; o += G) {
         const float ko = sk[o];
         int rank = 0;
         for (int j = 0; j < D; ++j) {
@@ -1263,47 +1416,75 @@ __global__ void sample_biased_alias_kernel(
           rank += (kj > ko) || (kj == ko && j < o);
         }
         if (rank < k) {
-          const bool take = valid && ko > neg_inf();
+          const bool take = ko > neg_inf();
           ids[b * k + rank] = take ? indices[clamp_pos(start + o, n_edges)] : kInvalid;
           mask[b * k + rank] = take;
         }
       }
-    } else {  // the first k distinct of T alias draws, in draw order
-      for (int t = lane; t < T; t += 32)
-        sd[t] = alias_draw((uint32_t)b0[t], (uint32_t)b1[t], deg, start, alias_prob, alias_idx,
-                           n_edges);
-      __syncwarp();
-      int got = 0;  // first occurrences so far (the same in every lane)
-      for (int t0 = 0; t0 < T; t0 += 32) {
-        const int t = t0 + lane;
-        bool first = false;
-        int32_t d = 0;
-        if (t < T) {
-          d = sd[t];
-          first = true;
-          for (int u = 0; u < t; ++u)
-            if (sd[u] == d) {
-              first = false;
-              break;
-            }
-        }
-        const unsigned bal = __ballot_sync(kFull, first);
-        const int rank = got + __popc(bal & ((1u << lane) - 1u));
-        if (first && rank < k) {
-          ids[b * k + rank] = indices[clamp_pos(start + d, n_edges)];
-          mask[b * k + rank] = 1;
-        }
-        got += __popc(bal);
-      }
-      for (int j = lane; j < k; j += 32)
-        if (j >= got) {
-          ids[b * k + j] = kInvalid;
-          mask[b * k + j] = 0;
-        }
-      if (lane == 0 && got < k) atomicAdd(shortfall, k - got);
+      __syncwarp(gmask);  // the keys are the next row's
+      continue;
     }
-    __syncwarp();  // shared memory is the next row's
+    // a long row: its first k distinct draws, read in rounds up to the k-th
+    const bool reg = set_log == 0;
+    int32_t kept = 0;  // with reg: lane gl holds pick gl
+    if (!reg) {
+      for (int i = gl; i < (1 << set_log); i += G) set[i] = kSetEmpty;
+      __syncwarp(gmask);
+    }
+    int got = 0, t0 = 0;
+    do {
+      const int n = min(G, T - t0);
+      const bool act = gl < n;
+      int32_t d = -1;
+      if (act) {
+        if (!DG_K8_PREFETCH || t0 != 0) {
+          x0 = (uint32_t)b0[t0 + gl];
+          x1 = (uint32_t)b1[t0 + gl];
+        }
+        d = alias_draw(x0, x1, deg, start, alias_prob, alias_idx, n_edges);
+      }
+      const unsigned actm = __ballot_sync(gmask, act);
+      // the lowest active lane of its value's lanes is the round's first ...
+      const unsigned same = __match_any_sync(gmask, d) & actm;
+      bool first = act && (same & below) == 0;
+      // ... and the row's first unless an earlier round kept the value
+      if (reg) {
+        for (int i = 0; i < got; ++i) {
+          const int32_t e = __shfl_sync(gmask, kept, base + i);
+          first = first && e != d;
+        }
+      } else if (first) {
+        first = !set_has(set, set_log, d);
+      }
+      const unsigned bal = __ballot_sync(gmask, first);
+      const int keep = min(__popc(bal), k - got);  // the new firsts of rank < k
+      if (reg) {  // lane got + q takes the q-th new first
+        const int q = gl - got;
+        const bool dest = q >= 0 && q < keep;
+        const int32_t v = __shfl_sync(gmask, d, dest ? nth_set(bal, q) : lane);
+        if (dest) kept = v;
+      } else {
+        const int rank = got + __popc(bal & below);
+        if (first && rank < k) {
+          picks[rank] = d;
+          set_add(set, set_log, d);
+        }
+        __syncwarp(gmask);
+      }
+      got += keep;
+      t0 += n;
+    } while (got < k && t0 < T);
+    for (int j = gl; j < k; j += G) {
+      const bool take = j < got;
+      const int32_t off = reg ? kept : (take ? picks[j] : 0);
+      ids[b * k + j] = take ? indices[clamp_pos(start + off, n_edges)] : kInvalid;
+      mask[b * k + j] = take;
+    }
+    if (!reg) __syncwarp(gmask);  // the set and picks are the next row's
+    if (gl == 0) short_sum += k - got;
   }
+  const int total = __reduce_add_sync(kFull, short_sum);
+  if (lane == 0 && total) atomicAdd(shortfall, total);
 }
 
 // Warps per block such that their shared memory fits the default 48 KB
@@ -1356,13 +1537,19 @@ int launch_sample_biased_alias(const void* indptr, const int32_t* indices, const
                                const float* alias_prob, const int32_t* alias_idx,
                                const int32_t* seeds, const int64_t* bits, const int64_t* gkeys,
                                int32_t* ids, uint8_t* mask, int32_t* shortfall, int64_t B, int k,
-                               int64_t n_nodes, int64_t n_edges, int replace,
+                               int64_t n_nodes, int64_t n_edges, int replace, int sms,
                                cudaStream_t stream) {
-  const size_t per_warp = replace ? 0 : (size_t)4 * k * sizeof(float);
-  const int wpb = warps_for(per_warp);
-  sample_biased_alias_kernel<IP><<<grid_for(B, wpb), wpb * 32, wpb * per_warp, stream>>>(
+  const int G = k8_group(k, replace), per_warp = 32 / G;
+  const int set_log = replace ? 0 : k8_set_log(k);
+  const size_t group_bytes = k8_group_bytes(k, replace);
+  const int64_t warps = (B + per_warp - 1) / per_warp;
+  // a warp on every SM before a block takes a second
+  const int most = warps_for(group_bytes * per_warp);
+  const int64_t spread = (warps + sms - 1) / sms;
+  const int wpb = (int)(spread < most ? spread : most);
+  sample_biased_alias_kernel<IP><<<grid_for(warps, wpb), wpb * 32, wpb * per_warp * group_bytes, stream>>>(
       static_cast<const IP*>(indptr), indices, probs, alias_prob, alias_idx, seeds, bits, gkeys,
-      ids, mask, shortfall, B, k, n_nodes, n_edges, replace);
+      ids, mask, shortfall, B, k, n_nodes, n_edges, replace, G, set_log, (int)group_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -1444,14 +1631,16 @@ int dg_sample_biased_alias(const void* indptr, int indptr_int64, const int32_t* 
   if (B < 0 || k < 1 || k > kMaxK || n_nodes <= 0 || n_edges <= 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (indptr_int64)
     return launch_sample_biased_alias<int64_t>(indptr, indices, probs, alias_prob, alias_idx,
                                                seeds, bits, gkeys, ids, mask, shortfall, B, k,
-                                               n_nodes, n_edges, replace, st);
+                                               n_nodes, n_edges, replace, sms, st);
   return launch_sample_biased_alias<int32_t>(indptr, indices, probs, alias_prob, alias_idx, seeds,
                                              bits, gkeys, ids, mask, shortfall, B, k, n_nodes,
-                                             n_edges, replace, st);
+                                             n_edges, replace, sms, st);
 }
 
 }  // extern "C"

@@ -19,8 +19,13 @@ models below compute each row the way ``csrc/sampling.cu`` does:
   chunk sums folded in order into the befores and the total, each draw's
   chunk the first whose local target is >= 0 and below its sum, and the
   walk of that chunk alone;
-* K8: a short row's keys ranked by counting, a long row's first distinct
-  draws ranked by ballot popcounts in rounds of 32.
+* K8: a group of G lanes a row (8, 16 or 32, the least that holds k), at
+  its lanes of a warp; a short row's keys ranked by counting; a long row's
+  draws read in rounds of min(G, k - got, T - t), each round's firsts the
+  lowest lane of each value's match set less the values kept in earlier
+  rounds (a register list for k <= 32, an open-addressed set above),
+  ranked by ballot popcounts, the loop ending at the k-th first
+  occurrence.
 
 Every f32 operation is a numpy float32 operation in the kernel's order
 (the kernel uses the round-to-nearest intrinsics, which never fuse), and
@@ -266,40 +271,184 @@ def _alias_draw(b0, b1, deg, start, ap, ai, E):
     return j if _uniform(b1) < ap[pos] else int(ai[pos])
 
 
-def model_k8(indptr, indices, probs, ap, ai, seeds, bits, gkeys, k, replace):
+# csrc/sampling.cu: DG_K8_REG_MAX_K (k up to this keeps a long row's picks in
+# registers), k8_group, k8_set_log, nth_set and K8's set
+K8_REG_MAX_K = 32
+
+
+def _k8_group(k, replace=False):
+    return (8 if k <= 8 else (16 if k <= 16 else 32)) if replace else 32
+
+
+def _k8_set_log(k, reg_max_k=K8_REG_MAX_K):
+    if k <= reg_max_k:
+        return 0
+    log = 1
+    while (1 << log) < 2 * k:
+        log += 1
+    return log
+
+
+def _popc(m):
+    return bin(m).count("1")
+
+
+def _nth_set(m, n):
+    """The position of the n-th set bit of m (from 0), by the kernel's
+    binary search over popcounts."""
+    p = 0
+    for w in (16, 8, 4, 2, 1):
+        if _popc(m & ((1 << (p + w)) - 1)) <= n:
+            p += w
+    return p
+
+
+class _K8Set:
+    """K8's open-addressed set: 2^log slots, linear probing from
+    ``(d * golden) >> (32 - log)``, values as uint32."""
+
+    def __init__(self, log):
+        self.log, self.slots, self.probes = log, [None] * (1 << log), 0
+
+    def _walk(self, d):
+        i = ((d & 0xFFFFFFFF) * 0x9E3779B9 & 0xFFFFFFFF) >> (32 - self.log)
+        while True:
+            self.probes += 1
+            yield i
+            i = (i + 1) & ((1 << self.log) - 1)
+
+    def has(self, d):
+        for i in self._walk(d):
+            if self.slots[i] == d & 0xFFFFFFFF:
+                return True
+            if self.slots[i] is None:
+                return False
+
+    def add(self, d):
+        for i in self._walk(d):
+            if self.slots[i] is None:
+                self.slots[i] = d & 0xFFFFFFFF
+                return
+
+
+def model_k8(indptr, indices, probs, ap, ai, seeds, bits, gkeys, k, replace, reg_max_k=K8_REG_MAX_K,
+             trace=None):
+    """K8 as the kernel computes it: a group of G lanes a row, at lanes
+    [base, base + G) of its warp, every mask in the warp's lane bits.  A
+    long row reads its draws in rounds of min(G, T - t) and stops after
+    the round that holds its k-th first occurrence.  ``trace`` (a dict) collects each row's
+    draw indices read (``reads``), the round firsts an earlier round had
+    kept (``cross_round``), the duplicates within a round (``in_round``),
+    the rounds, and the set's probes."""
     n, E = len(indptr) - 1, len(indices)
     B = len(seeds)
+    G = _k8_group(k, replace)
+    log = _k8_set_log(k, reg_max_k)
     ids = np.full((B, k), INVALID, np.int32)
     mask = np.zeros((B, k), bool)
     shortfall = 0
+    tr = trace if trace is not None else {}
+    for key_ in ("reads", "rounds"):
+        tr.setdefault(key_, {})
+    for key_ in ("cross_round", "in_round", "probes"):
+        tr.setdefault(key_, 0)
     for b, seed in enumerate(seeds):
+        base = (b % (32 // G)) * G  # the group's first lane in its warp
+        lanes = range(base, base + G)
         start, deg, valid = _extent(indptr, seed, n)
+        T, D = (k, 2 * k) if replace else (4 * k, 2 * k)
+        reads = tr["reads"].setdefault(b, [])
+
+        def draw(t):
+            reads.append(t)
+            return _alias_draw(bits[0, b, t], bits[1, b, t], deg, start, ap, ai, E)
+
         if replace:
             if valid and deg > 0:
                 for t in range(k):
-                    sel = _alias_draw(bits[0, b, t], bits[1, b, t], deg, start, ap, ai, E)
-                    ids[b, t], mask[b, t] = indices[min(start + sel, E - 1)], True
+                    ids[b, t], mask[b, t] = indices[min(start + draw(t), E - 1)], True
             continue
-        D, T = 2 * k, 4 * k
+        if deg == 0:
+            continue
         if deg <= D:
             sk = [(_gumbel(gkeys[b, o], probs[min(start + o, E - 1)])
                    if o < deg and probs[min(start + o, E - 1)] > 0 else -np.inf) for o in range(D)]
             for o in range(D):
                 rank = sum(1 for j in range(D) if sk[j] > sk[o] or (sk[j] == sk[o] and j < o))
-                if rank < k and valid and sk[o] > -np.inf:
+                if rank < k and sk[o] > -np.inf:
                     ids[b, rank], mask[b, rank] = indices[min(start + o, E - 1)], True
-        else:
-            sd = [_alias_draw(bits[0, b, t], bits[1, b, t], deg, start, ap, ai, E) for t in range(T)]
-            got = 0
-            for t0 in range(0, T, 32):
-                firsts = [t < T and sd[t] not in sd[:t] for t in range(t0, t0 + 32)]
-                for lane, first in enumerate(firsts):
-                    rank = got + sum(firsts[:lane])
-                    if first and rank < k:
-                        ids[b, rank], mask[b, rank] = indices[min(start + sd[t0 + lane], E - 1)], True
-                got += sum(firsts)
-            shortfall += max(k - got, 0)
+            continue
+        kept = [0] * 32  # the warp's registers: lane base + i holds pick i
+        kset, picks = (_K8Set(log), [0] * k) if log else (None, None)
+        got = t0 = rounds = 0
+        while True:
+            cnt = min(G, T - t0)
+            act = {lane: lane - base < cnt for lane in lanes}
+            d = {lane: draw(t0 + lane - base) if act[lane] else -1 for lane in lanes}
+            actm = sum(1 << lane for lane in lanes if act[lane])
+            first = {}
+            for lane in lanes:  # __match_any_sync, then the lowest active lane
+                same = sum(1 << x for x in lanes if d[x] == d[lane]) & actm
+                first[lane] = act[lane] and (same & ((1 << lane) - 1)) == 0
+            tr["in_round"] += sum(act.values()) - sum(first.values())
+            before = sum(first.values())
+            if log == 0:
+                for i in range(got):  # a shuffle from lane base + i
+                    e = kept[base + i]
+                    for lane in lanes:
+                        first[lane] = first[lane] and e != d[lane]
+            else:
+                for lane in lanes:
+                    if first[lane]:
+                        first[lane] = not kset.has(d[lane])
+            tr["cross_round"] += before - sum(first.values())
+            bal = sum(1 << lane for lane in lanes if first[lane])
+            keep = min(_popc(bal), k - got)  # the new firsts of rank < k
+            if log == 0:
+                for lane in lanes:
+                    q = lane - base - got
+                    if 0 <= q < keep:
+                        kept[lane] = d[_nth_set(bal, q)]
+            else:
+                for lane in lanes:
+                    rank = got + _popc(bal & ((1 << lane) - 1))
+                    if first[lane] and rank < k:
+                        picks[rank] = d[lane]
+                        kset.add(d[lane])
+            got += keep
+            t0 += cnt
+            rounds += 1
+            if not (got < k and t0 < T):
+                break
+        assert got <= k
+        for j in range(got):
+            off = kept[base + j] if log == 0 else picks[j]
+            ids[b, j], mask[b, j] = indices[min(start + off, E - 1)], True
+        shortfall += k - got
+        tr["rounds"][b] = rounds
+        tr["probes"] += kset.probes if kset else 0
     return ids, mask, shortfall
+
+
+def _plain_draws(indptr, ap, ai, seeds, bits, k, E):
+    """Each long row's index of its k-th first occurrence among its 4k
+    draws in order (T - 1 when it falls short), and its distinct draws."""
+    n = len(indptr) - 1
+    out = {}
+    for b, seed in enumerate(seeds):
+        start, deg, valid = _extent(indptr, seed, n)
+        if not valid or deg <= 2 * k:
+            continue
+        seq = [_alias_draw(bits[0, b, t], bits[1, b, t], deg, start, ap, ai, E) for t in range(4 * k)]
+        seen, last = set(), 4 * k - 1
+        for t, x in enumerate(seq):
+            if x not in seen:
+                seen.add(x)
+                if len(seen) == k:
+                    last = t
+                    break
+        out[b] = (last, len(set(seq)))
+    return out
 
 
 # ---- the inputs: rows at the kernels' edges ----------------------------------
@@ -538,41 +687,157 @@ def test_k7_merge_packing_is_lax_top_k_order():
     assert _ord(F32(-np.inf)) == ORD_NEG_INF and all(_pack(x, o) > 0 for x, o in zip(keys, offs))
 
 
-@pytest.mark.parametrize("k", [1, 3, 10])
-@pytest.mark.parametrize("replace", [False, True])
-def test_k8_model_equals_plain(replace, k):
-    hg, seeds = _edge_graph(k, 100 + k)
+def _jax_alias_keys(key, B, k, replace):
+    """The keys JAX's ``sample_biased_alias`` draws from ``key``, as the
+    port's plain version takes them injected."""
+    if replace:
+        return torch.from_numpy(np.asarray(jprng.random_keys(key, (2, B, k))).astype(np.int64))
+    bits = np.asarray(jprng.random_keys(key, (2, B, 4 * k))).astype(np.int64)
+    gum = np.asarray(jprng.random_keys(jax.random.fold_in(key, 1), (B, 2 * k))).astype(np.int64)
+    return torch.from_numpy(bits), torch.from_numpy(gum)
+
+
+def _k8_against_plain_and_jax(hg, seeds, k, replace, key, reg_max_k=K8_REG_MAX_K, trace=None):
+    """The model, the plain version and JAX's ``sample_biased_alias`` on one
+    set of JAX keys: ids, mask and the shortfall equal."""
     g = hg.to_device("cpu", with_alias=True)
-    gen = torch.Generator().manual_seed(k)
-    B = len(seeds)
-    bits = tsampling.prng.random_keys(gen, (2, B, k if replace else 4 * k))
-    gkeys = tsampling.prng.random_keys(gen, (B, 2 * k))
-    key = bits if replace else (bits, gkeys)
-    got = tsampling.sample_biased_alias_plain(g, torch.from_numpy(seeds), k, replace, key)
+    akey = _jax_alias_keys(key, len(seeds), k, replace)
+    got = tsampling.sample_biased_alias_plain(g, torch.from_numpy(seeds), k, replace, akey)
+    bits, gk = (akey, akey) if replace else akey
     ids, mask, short = model_k8(*_np(hg), g.alias_prob.numpy(), g.alias_idx.numpy(), seeds, bits.numpy(),
-                                gkeys.numpy(), k, replace)
+                                gk.numpy(), k, replace, reg_max_k, trace)
     np.testing.assert_array_equal(ids, got.ids.numpy())
     np.testing.assert_array_equal(mask, got.mask.numpy())
     assert short == int(got.overflow)
+    jg = jgraph.HostGraph(indptr=hg.indptr, indices=hg.indices, probs=hg.probs).to_device(with_alias=True)
+    want = jsampling.sample_biased_alias(jg, seeds, k, replace, key)
+    np.testing.assert_array_equal(ids, np.asarray(want.ids))
+    np.testing.assert_array_equal(mask, np.asarray(want.mask))
+    assert short == int(want.overflow)
+    return g, akey, ids, mask, short
+
+
+@pytest.mark.parametrize("k", [1, 3, 10])
+@pytest.mark.parametrize("replace", [False, True])
+def test_k8_model_equals_plain(replace, k):
+    """The model at the edge rows (degrees 0, 1, k, 2k, 2k + 1, 31-33, 300,
+    1025, 3000, random), on JAX's keys: equal to the plain version and to
+    JAX's sampler."""
+    hg, seeds = _edge_graph(k, 100 + k)
+    _k8_against_plain_and_jax(hg, seeds, k, replace, jax.random.key(100 + k))
+
+
+@pytest.mark.parametrize("indptr_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("reg_max_k", [K8_REG_MAX_K, 0])
+@pytest.mark.parametrize("k", [5, 15, 40])
+def test_k8_model_both_lists_equal_plain(k, reg_max_k, indptr_dtype):
+    """The register list (k <= 32) and the shared set (k = 40 always; every
+    k with DG_K8_REG_MAX_K=0, bench_k8's ``shared`` variant) give the plain
+    version's picks; the set is probed about once a lookup or insert."""
+    hg, seeds = _edge_graph(k, 200 + k, indptr_dtype)
+    trace = {}
+    _k8_against_plain_and_jax(hg, seeds, k, False, jax.random.key(200 + k), reg_max_k, trace)
+    if _k8_set_log(k, reg_max_k):
+        lookups = sum(len(v) for v in trace["reads"].values())  # at most one lookup and one insert a draw
+        assert 0 < trace["probes"] < 4 * lookups
+    else:
+        assert trace["probes"] == 0
+
+
+@pytest.mark.parametrize("k", [3, 15, 40])
+def test_k8_model_starts_no_round_after_the_kth_first_occurrence(k):
+    """A long row reads its draws 0, 1, ... in order, in rounds of G, and
+    starts no round after the one that holds its k-th first occurrence: it
+    reads fewer than G draws past it; a row that never reaches k reads all
+    4k."""
+    hg, seeds = _edge_graph(k, 300 + k)
+    trace = {}
+    g, akey, *_ = _k8_against_plain_and_jax(hg, seeds, k, False, jax.random.key(300 + k), trace=trace)
+    draws = _plain_draws(hg.indptr.astype(np.int64), g.alias_prob.numpy(), g.alias_idx.numpy(), seeds,
+                         akey[0].numpy(), k, hg.num_edges)
+    assert draws
+    G = _k8_group(k)
+    for b, (last, distinct) in draws.items():
+        end = min(-(-(last + 1) // G) * G, 4 * k)
+        assert trace["reads"][b] == list(range(end)) and end - (last + 1) < G, b
+        assert (last == 4 * k - 1) or distinct >= k
+    # rows that need fewer draws than a full pass read fewer
+    assert any(last + 1 < 4 * k for last, _ in draws.values())
+    for b in set(range(len(seeds))) - set(draws):  # short rows and padded seeds take no draw
+        assert trace["reads"][b] == []
 
 
 def test_k8_model_counts_a_shortfall():
     """A long row with 2 drawable edges and k = 4: every call falls short
-    by 2, in the model and the plain version alike."""
+    by 2, in the model, the plain version and JAX alike, and reads all 16
+    draws."""
     indptr = np.array([0, 12], np.int64)
     w = np.zeros(12, np.float32)
     w[[3, 7]] = 1.0
     hg = tgraph.HostGraph(indptr=indptr, indices=np.arange(12, dtype=np.int32) + 5, probs=w)
-    g = hg.to_device("cpu", with_alias=True)
-    gen = torch.Generator().manual_seed(0)
     seeds = np.zeros(6, np.int32)
-    bits, gkeys = tsampling.prng.random_keys(gen, (2, 6, 16)), tsampling.prng.random_keys(gen, (6, 8))
-    got = tsampling.sample_biased_alias_plain(g, torch.from_numpy(seeds), 4, False, (bits, gkeys))
-    ids, mask, short = model_k8(*_np(hg), g.alias_prob.numpy(), g.alias_idx.numpy(), seeds, bits.numpy(),
-                                gkeys.numpy(), 4, False)
-    np.testing.assert_array_equal(ids, got.ids.numpy())
-    assert short == int(got.overflow) == 6 * 2
+    trace = {}
+    _, _, ids, mask, short = _k8_against_plain_and_jax(hg, seeds, 4, False, jax.random.key(0), trace=trace)
+    assert short == 6 * 2
     assert set(ids[mask].tolist()) == {8, 12}
+    assert all(trace["reads"][b] == list(range(16)) for b in range(6))
+    assert all(trace["rounds"][b] == -(-16 // _k8_group(4)) for b in range(6))
+
+
+def test_k8_model_drops_duplicates_across_rounds():
+    """Rows of 60 edges, most of the weight on 5 of them, k = 10: draws
+    repeat within a round and across rounds (a value kept in round 1 drawn
+    again in round 2), and the picks still equal the plain version's."""
+    rng = np.random.default_rng(7)
+    degs = [60] * 16
+    w = np.full(sum(degs), 0.01, np.float32)
+    for r in range(len(degs)):
+        w[60 * r + rng.choice(60, 5, replace=False)] = 1.0
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    hg = tgraph.HostGraph(indptr=indptr, indices=rng.integers(0, 80, sum(degs)).astype(np.int32), probs=w)
+    seeds = np.repeat(np.arange(len(degs)), 4).astype(np.int32)
+    trace = {}
+    _k8_against_plain_and_jax(hg, seeds, 10, False, jax.random.key(7), trace=trace)
+    assert trace["cross_round"] > 0 and trace["in_round"] > 0
+    assert max(trace["rounds"].values()) >= 2
+
+
+@pytest.mark.parametrize("replace", [False, True])
+@pytest.mark.parametrize("k", [5, 10, 40])
+def test_k8_model_warps_of_mixed_rows(k, replace):
+    """Group boundaries: with replacement a warp holds 32 / G rows (4 at
+    k = 5, 2 at k = 10), and here of different kinds (a long row, a short
+    row, a padded seed, a zero-degree row, a long row that falls short),
+    in every rotation, so each kind sits at each group of a warp; the
+    warp-lane masks keep the groups apart.  Without replacement a row is a
+    warp, and the same seeds are held to the plain version."""
+    rng = np.random.default_rng(k)
+    degs = [4 * k + 9, 2 * k, 0, 3 * k, 2 * k + 1]  # long, short, empty, long (falls short), long
+    w = np.abs(rng.standard_normal(sum(degs))).astype(np.float32)
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    w[indptr[3]:indptr[4]] = 0
+    w[indptr[3]] = 1.0  # one drawable edge: short of k
+    hg = tgraph.HostGraph(indptr=indptr, indices=rng.integers(0, 60, sum(degs)).astype(np.int32), probs=w)
+    kinds = [0, 1, INVALID, 2, 3, 4]
+    per_warp = 32 // _k8_group(k, replace)
+    seeds = np.array([kinds[(i + r) % len(kinds)] for r in range(len(kinds)) for i in range(max(per_warp, 2))],
+                     np.int32)
+    _, _, ids, mask, short = _k8_against_plain_and_jax(hg, seeds, k, replace, jax.random.key(k))
+    assert short == (0 if replace else (k - 1) * int((seeds == 3).sum()))  # the row with one edge keeps 1
+    assert not mask[seeds == INVALID].any() and not mask[seeds == 2].any()
+    if replace and k <= 16:
+        assert per_warp > 1
+
+
+def test_k8_nth_set_finds_each_set_bit():
+    """nth_set against numpy's positions of the set bits, on random masks
+    and the edge ones."""
+    rng = np.random.default_rng(0)
+    masks = [0xFFFFFFFF, 1, 0x80000000, 0x80000001, 0xFF00, 0xFF000000] \
+        + [int(x) for x in rng.integers(1, 2**32, 300, dtype=np.uint64)]
+    for m in masks:
+        pos = [i for i in range(32) if m >> i & 1]
+        assert [_nth_set(m, q) for q in range(len(pos))] == pos
 
 
 # ---- the wrappers' contract ----------------------------------------------------
@@ -728,6 +993,55 @@ def test_k7_list_variants_build_libraries_of_their_own(monkeypatch):
             assert f"#ifndef {d[2:].split('=')[0]}" in src
         cmd = build._command(build.CSRC_DIR / "sampling.cu", Path("out.so"), defines)
         assert cmd[cmd.index("-o") - len(defines):cmd.index("-o")] == list(defines)
+
+
+def test_k8_variants_build_libraries_of_their_own(monkeypatch):
+    """bench_k8's variants: each -D set names a knob of csrc/sampling.cu and
+    is a library of its own, and the default build is the one the wrappers
+    load."""
+    from dist_gnn_tpu_torch.scripts import bench_k8
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    src = (build.CSRC_DIR / "sampling.cu").read_text()
+    paths = {build._lib_path("sampling", d) for d in bench_k8.VARIANTS.values()}
+    assert len(paths) == len(bench_k8.VARIANTS) and build._lib_path("sampling") in paths
+    assert bench_k8.VARIANTS["default"] == ()
+    for defines in bench_k8.VARIANTS.values():
+        for d in defines:
+            name, value = d[2:].split("=")
+            assert f"#ifndef {name}" in src and f"#define {name} {value}" not in src
+
+
+@pytest.mark.parametrize("k", [3, 15])
+def test_k8_bound_counts_the_draws_the_kernel_reads(k):
+    """bench_k8.k8_bytes (chip_smoke's K8 bound) charges a long row the
+    draws up to its k-th first occurrence (the model, in rounds of G,
+    reads fewer than G more), and fewer bytes than charging all 4k; with
+    replacement every draw is needed."""
+    from dist_gnn_tpu_torch.scripts import bench_k8
+
+    hg, seeds = _edge_graph(k, 400 + k)
+    trace = {}
+    g, akey, *_ = _k8_against_plain_and_jax(hg, seeds, k, False, jax.random.key(400 + k), trace=trace)
+    st = torch.from_numpy(seeds)
+    got = bench_k8.k8_bytes(g, st, k, False, akey)
+    draws = _plain_draws(hg.indptr.astype(np.int64), g.alias_prob.numpy(), g.alias_idx.numpy(), seeds,
+                         akey[0].numpy(), k, hg.num_edges)
+    assert got["drawn_rows"] == len(draws) and got["draws_all"] == 4 * k * len(draws)
+    assert got["draws_needed"] == sum(last + 1 for last, _ in draws.values()) < got["draws_all"]
+    assert all(0 <= len(trace["reads"][b]) - (last + 1) < _k8_group(k) for b, (last, _) in draws.items())
+    assert 0 < got["bytes"] < got["bytes_all_draws"]
+    rkey = _jax_alias_keys(jax.random.key(401 + k), len(seeds), k, True)
+    rep = bench_k8.k8_bytes(g, st, k, True, rkey)
+    assert rep["draws_needed"] == rep["draws_all"] and rep["bytes"] == rep["bytes_all_draws"]
+
+
+def test_k8_needed_draws_stop_at_the_kth_first_occurrence():
+    from dist_gnn_tpu_torch.scripts import bench_k8
+
+    d = torch.tensor([[4, 4, 2, 4, 7, 1, 9, 9], [1, 1, 1, 1, 1, 1, 2, 1], [3, 5, 6, 8, 0, 0, 0, 0]])
+    need = bench_k8.needed_draws(d, 3)
+    assert need.sum(1).tolist() == [5, 8, 3]  # 4, 2, 7 at t = 0, 2, 4; a row short of 3; 3, 5, 6
 
 
 def test_k7_fast_log_filter_never_drops_a_candidate():
