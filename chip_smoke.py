@@ -209,6 +209,34 @@ weights from a seed.  Phases, one JSON line each:
     backend="gloo")``: the flagship composition on (2, 2), every loss
     finite).
 
+19. the apps and the dataset I/O (``examples/graphsage``,
+    ``dataloading/preprocess.py``, ``scripts/bench_scale.py``), each phase
+    one line with the card's name and power limit: dataset_io (the bench
+    arrays with their weights written by ``save_dataset`` into a temporary
+    directory, read back by ``load_dataset(mmap=True)`` as read-only
+    memmaps equal to them, the graph uploaded from the memmaps equal to
+    the in-memory one with no warning, and ``make_ogb_raw_fixture`` +
+    ``process_ogb_raw`` for ogbn-products and ogbn-papers100M at 2,000
+    nodes: shapes, dtypes, degrees and values, parsed without pandas);
+    app_sage (``node_classification.main`` on the saved dataset at the
+    bench config, bf16, 2 epochs, ``--autotune --full-eval --checkpoint
+    --metrics-log``: val_acc >= 0.99 after epoch 2, the full-graph test
+    accuracy >= 0.99, the log's events and fields, every parameter on
+    ``cuda:0``, K6/K1/K3/the slot transpose/K3-bwd launched, ms per step
+    beside training_sage's ``Trainer`` ms; then ``--resume`` for one epoch,
+    the step carried on); app_variants (one epoch each of ``--model gat``
+    (hidden 128), ``--model gcn``, ``--bias`` (K8), ``--unroll 4``,
+    ``--profile``, ``--tier host``, ``--tier host --host-struct``,
+    ``--tier dist-host`` and ``--dist``, the last two as a spawned world of
+    one on NCCL: epoch time, loss, val_acc, launches); app_dist
+    (``node_classification_dist.main`` with ``--procs 2
+    --devices-per-process 2``, four ranks on the card over gloo at the
+    app's defaults, both tiers; the world of one at the bench width runs
+    the same trainers as app_variants' ``--dist`` and ``--tier
+    dist-host``); scale (``bench_scale.run`` at 500k and at 2M nodes,
+    average degree 15, in this process: the bench config's step against
+    the graph's size).  Every spawned world waits at most 600 s.
+
 Then the profiler's count of sessions that lost kernel records
 (``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
 K1, K2, K3, K3-bwd, K4, K5, the slot transpose, K7, K8, each with its
@@ -227,12 +255,19 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import itertools
 import json
+import math
+import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from unittest import mock
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
@@ -2154,6 +2189,8 @@ def main() -> int:
         return {"f32_loss_cuda_and_cpu": [float(loss), float(loss_cpu)], "f32_loss_err_vs_cpu": loss_err,
                 "f32_grad_share_err_vs_cpu": grad_err}
 
+    trainer_ms_per_step = {}  # each train_phase's ms per Trainer.train_step, beside the apps' own
+
     def train_phase(name, m, per_step, seed, grad_check):
         """One step's gradients checked by ``grad_check(blocks, labels,
         seed mask, dropout keys)``, then 8 timed ``train_step`` calls of
@@ -2218,6 +2255,7 @@ def main() -> int:
         kept_share = profile_device.kept_share
         busy = sum(ms for ms, _ in kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
+        trainer_ms_per_step[name] = step_s * 1e3
         emit({"phase": name, "steps": N_STEPS, "batch": BATCH, "ms_per_step": step_s * 1e3,
               "trained_edges_per_s": edges / step_s, "valid_edges_per_step": edges,
               "losses": losses, "launches": launches,
@@ -3516,6 +3554,175 @@ def main() -> int:
                        (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose"),
                        (k7, "sample_biased"), (k8, "sample_biased_alias")):
         kern["two_tier_launches_per_step"] = tt_launch[name]
+
+    # ---- 19. the apps, the dataset I/O and the scale smoke -------------------
+    from dist_gnn_tpu_torch.dataloading.preprocess import (load_dataset, make_ogb_raw_fixture, process_ogb_raw,
+                                                          save_dataset)
+    from dist_gnn_tpu_torch.examples.graphsage import node_classification as nc_app
+    from dist_gnn_tpu_torch.examples.graphsage import node_classification_dist as ncd_app
+    from dist_gnn_tpu_torch.scripts import bench_scale
+
+    nc_app.RUN_TIMEOUT_S = 600.0  # both apps' launchers and process groups, as every launch above
+    t_apps = time.perf_counter()
+    ds_root = tempfile.mkdtemp(prefix="chip_smoke_datasets_")
+    try:
+        # dataset_io: the bench arrays (with the weights) saved, memmapped back
+        # equal, the graph from the memmaps equal to the in-memory one; both raw
+        # OGB layouts ingested without pandas
+        ds_name = "bench500k"
+        ds_arrays = {**arrays, "probs": probs_np}
+        ds_meta = {**meta, "name": ds_name}
+        t0 = time.perf_counter()
+        save_dataset(ds_root, ds_name, ds_arrays, ds_meta)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded, lmeta = load_dataset(ds_root, ds_name, mmap=True)
+        check(sorted(loaded) == sorted(ds_arrays) and lmeta == ds_meta, f"dataset_io: loaded {sorted(loaded)}")
+        for k, v in ds_arrays.items():
+            lv = loaded[k]
+            check(isinstance(lv, np.memmap) and not lv.flags.writeable and lv.dtype == v.dtype
+                  and np.array_equal(lv, v), f"dataset_io: {k} loads back different")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # the read-only memmaps reach torch by a copy
+            g_mm = HostGraph(indptr=loaded["indptr"], indices=loaded["indices"]).to_device(cuda)
+        check(g_mm.max_degree == graph.max_degree and g_mm.indptr.dtype == graph.indptr.dtype
+              and torch.equal(g_mm.indptr, graph.indptr) and torch.equal(g_mm.indices, graph.indices),
+              "dataset_io: the graph from the memmaps differs from the in-memory one")
+        load_s = time.perf_counter() - t0
+        ds_bytes = sum(os.path.getsize(os.path.join(ds_root, ds_name, f)) for f in os.listdir(os.path.join(ds_root, ds_name)))
+        del g_mm, loaded
+        ogb = {}
+        # any import of pandas fails while the raw layouts are ingested
+        with mock.patch.dict(sys.modules, {"pandas": None}):
+            for oname in ("ogbn-products", "ogbn-papers100M"):
+                raw = os.path.join(ds_root, "raw_" + oname)
+                n_o = 2000
+                src_o, dst_o, feats_o, labels_o, split_o = make_ogb_raw_fixture(raw, oname, seed=0, n=n_o)
+                t0 = time.perf_counter()
+                oa, om = process_ogb_raw(raw, oname, ds_root, with_probs=True)
+                o_s = time.perf_counter() - t0
+                sym = oname == "ogbn-products"
+                dst_all = np.concatenate([dst_o, src_o]) if sym else dst_o
+                check(om["num_nodes"] == n_o and om["num_edges"] == len(dst_all) and om["feature_dim"] == 8
+                      and om["num_classes"] == int(np.nan_to_num(labels_o).max()) + 1, f"dataset_io {oname}: meta {om}")
+                check(oa["indptr"].shape == (n_o + 1,) and oa["indices"].dtype == np.int32
+                      and np.array_equal(np.diff(oa["indptr"]), np.bincount(dst_all, minlength=n_o))
+                      and oa["features"].dtype == np.float32 and np.array_equal(oa["features"], feats_o)
+                      and oa["labels"].dtype == np.int32
+                      and np.array_equal(oa["labels"], np.nan_to_num(labels_o).astype(np.int32))
+                      and oa["probs"].dtype == np.float32 and oa["probs"].shape == (len(dst_all),)
+                      and all(oa[f"{k}_idx"].dtype == np.int32 and np.array_equal(oa[f"{k}_idx"], split_o[k])
+                              for k in ("train", "valid", "test")),
+                      f"dataset_io {oname}: shapes, dtypes or values")
+                ogb[oname] = {**om, "symmetrized": sym, "seconds": o_s,
+                              "dtypes": {k: str(v.dtype) for k, v in oa.items()}}
+        emit({"phase": "dataset_io", "name": ds_name, "arrays": {k: [list(v.shape), str(v.dtype)]
+                                                                  for k, v in ds_arrays.items()},
+              "bytes_on_disk": ds_bytes, "save_s": save_s, "load_mmap_and_upload_s": load_s,
+              "loaded_equal": True, "memmap_graph_equal": True, "ogb_raw": ogb,
+              "pandas_installed": importlib.util.find_spec("pandas") is not None, "ingested_with_pandas_blocked": True,
+              "seconds": time.perf_counter() - t_apps, **card})
+
+        # app_sage: node_classification.main on the saved dataset at the bench
+        # config, then a resumed epoch from its checkpoint
+        common = ["--dataset", ds_name, "--root", ds_root, "--fan-out", ",".join(map(str, FAN_OUT)),
+                  "--batch-size", str(BATCH), "--bf16"]
+        ck = os.path.join(ds_root, "ck", "sage")
+        mlog = os.path.join(ds_root, "metrics.jsonl")
+        sage_argv = common + ["--hidden", "256", "--epochs", "2", "--autotune", "--full-eval", "--checkpoint", ck,
+                              "--metrics-log", mlog]
+        reset_counts()
+        t0 = time.perf_counter()
+        sage_res = nc_app.main(sage_argv)
+        sage_s = time.perf_counter() - t0
+        sage_launch = read_counts()
+        with open(mlog) as f:
+            events = [json.loads(line) for line in f]
+        sage_val = sage_res["epochs"][-1]["val_acc"]
+        check(sage_val >= VAL_ACC_MIN, f"app_sage: val_acc {sage_val} below {VAL_ACC_MIN}")
+        check(sage_res["test_acc"] is not None and sage_res["test_acc"] >= VAL_ACC_MIN,
+              f"app_sage: full-graph test accuracy {sage_res['test_acc']}")
+        check(sage_res["param_devices"] == ["cuda:0"], f"app_sage: parameters on {sage_res['param_devices']}")
+        check([e["event"] for e in events] == ["epoch", "epoch", "full_eval"]
+              and all(set(e) == {"event", "ts", "epoch", "loss", "train_acc", "time_s"} for e in events[:2])
+              and set(events[2]) == {"event", "ts", "test_acc"}, f"app_sage: metrics log {events}")
+        check(all(sage_launch[k] > 0 for k in ("sample_uniform", "gather_rows", "gather_mean", "slot_transpose",
+                                              "gather_mean_bwd")), f"app_sage: launches {sage_launch}")
+        sage_steps = sum(e["steps"] for e in sage_res["epochs"])
+        reset_counts()
+        t0 = time.perf_counter()
+        resumed = nc_app.main(common + ["--hidden", "256", "--epochs", "1", "--resume", ck])
+        resume_s = time.perf_counter() - t0
+        check(resumed["step"] == sage_res["step"] + resumed["epochs"][0]["steps"] and sage_res["step"] == sage_steps,
+              f"app_sage: the resumed run's step {resumed['step']} does not carry on from {sage_res['step']}")
+        check(all(math.isfinite(e["loss"]) for e in resumed["epochs"]), "app_sage: resumed loss not finite")
+        emit({"phase": "app_sage", "argv": sage_argv, "epochs": sage_res["epochs"],
+              "ms_per_step": [e["time_s"] / e["steps"] * 1e3 for e in sage_res["epochs"]],
+              "trainer_ms_per_step_training_sage": trainer_ms_per_step["training_sage"],
+              "test_acc": sage_res["test_acc"], "step": sage_res["step"], "metrics_events": [e["event"] for e in events],
+              "launches": sage_launch, "train_steps": sage_steps,
+              "launches_per_train_step": {k: sage_launch[k] / sage_steps for k in ("slot_transpose", "gather_mean_bwd")},
+              "seconds": sage_s,
+              "resume": {"step": resumed["step"], "epochs": resumed["epochs"], "seconds": resume_s}, **card})
+
+        # app_variants: one epoch each of the other modes on the same dataset
+        variants = {"gat": ["--model", "gat", "--hidden", "128"], "gcn": ["--model", "gcn"], "bias": ["--bias"],
+                    "unroll4": ["--unroll", "4"], "profile": ["--profile"], "tier_host": ["--tier", "host"],
+                    "tier_host_struct": ["--tier", "host", "--host-struct"], "tier_dist_host": ["--tier", "dist-host"],
+                    "dist": ["--dist"]}
+        var_out = {}
+        for tag, extra in variants.items():
+            spawned = tag in ("tier_dist_host", "dist")
+            argv = common + ["--epochs", "1"] + ([] if "--hidden" in extra else ["--hidden", "256"]) + extra
+            reset_counts()
+            t0 = time.perf_counter()
+            r = nc_app.main(argv)
+            run_s = time.perf_counter() - t0
+            lc = None if spawned else read_counts()
+            (ep,) = r["epochs"]
+            check(math.isfinite(ep["loss"]) and ep["steps"] > 0, f"app_variants {tag}: {ep}")
+            check(r["world"] == 1 and r["device"] == "cuda:0", f"app_variants {tag}: world {r['world']} on {r['device']}")
+            want = {"gat": ("gat_fwd", "gat_bwd", "sample_uniform", "gather_rows"), "bias": ("sample_biased_alias",),
+                    "gcn": ("sample_uniform", "gather_rows")}.get(tag, () if spawned else ("sample_uniform",))
+            check(lc is None or all(lc[k] > 0 for k in want), f"app_variants {tag}: launches {lc}")
+            if tag == "profile":
+                check(r["profile"] is not None and all(v >= 0 for v in r["profile"].values()),
+                      f"app_variants profile: {r['profile']}")
+            var_out[tag] = {"argv_extra": extra, "time_s": ep["time_s"], "steps": ep["steps"],
+                            "ms_per_step": ep["time_s"] / ep["steps"] * 1e3, "loss": ep["loss"],
+                            "val_acc": ep["val_acc"], "train_acc": ep["train_acc"], "profile_ms": r["profile"],
+                            "feat_miss_per_batch": ep.get("feat_miss"), "launches": lc, "seconds": run_s}
+        emit({"phase": "app_variants", "variants": var_out, **card})
+
+        # app_dist: node_classification_dist.main on (2, 2) over gloo on the one
+        # card at the app's defaults
+        dist_out = {}
+        for tag, argv, world, shape, backend in (
+                ("world4_hbm", ["--procs", "2", "--devices-per-process", "2", "--tier", "hbm"], 4, [2, 2], "gloo"),
+                ("world4_dist_host", ["--procs", "2", "--devices-per-process", "2", "--tier", "dist-host"],
+                 4, [2, 2], "gloo")):
+            t0 = time.perf_counter()
+            r = ncd_app.main(argv)
+            run_s = time.perf_counter() - t0
+            check(r["world"] == world and r["shape"] == shape and r["backend"] == backend and r["device"] == "cuda:0"
+                  and all(math.isfinite(e["loss"]) and 0.0 <= e["val_acc"] <= 1.0 for e in r["epochs"]),
+                  f"app_dist {tag}: {r}")
+            dist_out[tag] = {"argv": argv, "world": world, "shape": shape, "backend": backend, "batch": r["batch"],
+                             "num_edges": r["num_edges"], "epochs": r["epochs"],
+                             "ms_per_step": [e["time_s"] / e["steps"] * 1e3 for e in r["epochs"]], "seconds": run_s}
+        emit({"phase": "app_dist", "runs": dist_out, **card})
+
+        # scale: the bench config on 500k and 2M nodes of the same degree, one
+        # measurement at each size (scripts/bench_scale.py)
+        t0 = time.perf_counter()
+        scale_runs = [bench_scale.run(n, 15) for n in (500_000, 2_000_000)]
+        for sc in scale_runs:
+            check(sc["edges_per_step"] > 0 and math.isfinite(sc["step_ms"]) and sc["step_ms"] > 0, f"scale: {sc}")
+        emit({"phase": "scale", "runs": scale_runs,
+              "step_ms_2m_over_500k": scale_runs[1]["step_ms"] / scale_runs[0]["step_ms"],
+              "seconds": time.perf_counter() - t0, "apps_phases_s": time.perf_counter() - t_apps, **card})
+    finally:
+        shutil.rmtree(ds_root, ignore_errors=True)
 
     # ---- 15. kernels, card, result ----------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

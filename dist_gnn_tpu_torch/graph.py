@@ -100,15 +100,17 @@ class HostGraph:
         sampler (``ops/sampling.sample_neighbors``)."""
         dev = resolve_device(device)
 
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+        def put(a, dtype=None):
+            # a read-only array (a memmap of a loaded dataset) is copied:
+            # torch cannot share read-only memory
+            return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(dev)
 
         alias_prob = alias_idx = None
         if with_alias and self.probs is not None:
             ap, ai = self.build_alias_tables()
             alias_prob, alias_idx = put(ap, np.float32), put(ai, np.int32)
         return Graph(
-            indptr=torch.from_numpy(np.ascontiguousarray(self.indptr)).to(dev),
+            indptr=put(self.indptr),
             indices=put(self.indices, np.int32),
             probs=None if self.probs is None else put(self.probs, np.float32),
             num_nodes=self.num_nodes,
@@ -132,3 +134,19 @@ class Graph:
     alias_prob: Optional[torch.Tensor] = None  # [nnz] f32 acceptance thresholds
     alias_idx: Optional[torch.Tensor] = None  # [nnz] int32 alias offsets within the row
 
+    @property
+    def has_probs(self) -> bool:
+        return self.probs is not None
+
+    def degrees_of(self, nids: torch.Tensor) -> torch.Tensor:
+        """Degrees (int32) of possibly padded node ids; ``INVALID_ID``
+        padding gets 0."""
+        safe = torch.clamp(nids.long(), 0, self.num_nodes - 1)
+        deg = (self.indptr[safe + 1] - self.indptr[safe]).to(torch.int32)
+        return torch.where(nids == INVALID_ID, 0, deg)
+
+    def edge_rows(self) -> torch.Tensor:
+        """Row (destination) id of every edge, int32 [nnz]: the CSR expand
+        of ``indptr``, ``searchsorted(indptr, e, right) - 1``."""
+        e = torch.arange(self.num_edges, dtype=self.indptr.dtype, device=self.indptr.device)
+        return (torch.searchsorted(self.indptr, e, right=True) - 1).to(torch.int32)

@@ -265,11 +265,14 @@ def replicate_to_mesh(tree, mesh: Mesh):
     return torch.as_tensor(np.asarray(tree) if not isinstance(tree, torch.Tensor) else tree).to(mesh.device)
 
 
-def _child(fn, rank, world_size, init_method, backend, device, args, timeout_s, hosts, results) -> None:
+def _child(fn, rank, world_size, init_method, backend, device, args, timeout_s, hosts, results, local) -> None:
     torch.set_num_threads(1)
     try:
-        mesh = initialize_distributed(init_method, rank, world_size, backend, device, timeout_s=timeout_s,
-                                      hosts=hosts)
+        # the card of this launcher's ``local``-th rank: ranks of one host
+        # take its cards in turn, whatever their global numbers
+        local_rank = local % torch.cuda.device_count() if device.startswith("cuda") else None
+        mesh = initialize_distributed(init_method, rank, world_size, backend, device, local_rank=local_rank,
+                                      timeout_s=timeout_s, hosts=hosts)
         results.put((rank, True, fn(mesh, *args)))
     except BaseException:  # noqa: BLE001 — every failure goes back to the launcher
         results.put((rank, False, traceback.format_exc()))
@@ -286,27 +289,36 @@ def launch(
     device: DeviceLike = None,
     timeout_s: float = 120.0,
     hosts: Optional[int] = None,
+    init_method: Optional[str] = None,
+    ranks: Optional[Sequence[int]] = None,
 ) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on ``world_size`` spawned processes, one rank
-    each, and return their results in rank order (the counterpart of
+    """Run ``fn(mesh, *args)`` on spawned processes, one rank each, and
+    return their results in rank order (the counterpart of
     ``initialize_cpu_cluster``).  ``device`` defaults to the card and
     raises without one; ``device="cpu"`` gives a gloo world on the CPU.
     ``hosts`` makes ``mesh`` the two-tier mesh (:func:`make_mesh`).
 
-    The ranks meet through a ``file://`` rendezvous in a fresh temporary
-    directory.  ``fn`` and ``args`` must pickle, as must each result (so
+    By default this call starts every rank of the world, and they meet
+    through a ``file://`` rendezvous in a fresh temporary directory.  A
+    world that spans hosts runs one launcher per host, each with its own
+    ``ranks`` (the global ranks it starts; its ``i``-th rank takes card
+    ``i`` modulo the visible cards) and the same ``init_method``, a
+    ``tcp://host:port`` every host reaches; results come back for
+    ``ranks``.  ``fn`` and ``args`` must pickle, as must each result (so
     return numpy arrays or CPU tensors).  Every rank's failure comes back
     with its traceback; the launcher raises on the first one, or when
-    ``timeout_s`` passes, and kills every process it started either way."""
+    ``timeout_s`` passes (also the process group's timeout), and kills
+    every process it started either way."""
     device = str(resolve_device(device))
+    ranks = list(range(world_size)) if ranks is None else [int(r) for r in ranks]
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="dist_gnn_launch_")
-    init_method = "file://" + os.path.join(tmp, "rendezvous")
+    init_method = init_method or "file://" + os.path.join(tmp, "rendezvous")
     results = ctx.Queue()
     procs = [
         ctx.Process(target=_child, daemon=True,
-                    args=(fn, r, world_size, init_method, backend, device, args, timeout_s, hosts, results))
-        for r in range(world_size)
+                    args=(fn, r, world_size, init_method, backend, device, args, timeout_s, hosts, results, i))
+        for i, r in enumerate(ranks)
     ]
     got: Dict[int, Any] = {}
     failure = None
@@ -314,7 +326,7 @@ def launch(
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout_s
-        while len(got) < world_size and failure is None:
+        while len(got) < len(ranks) and failure is None:
             left = deadline - time.monotonic()
             if left <= 0:
                 failure = f"timed out after {timeout_s} s with ranks {sorted(got)} done"
@@ -322,13 +334,13 @@ def launch(
             try:
                 rank, ok, payload = results.get(timeout=min(left, 1.0))
             except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if p.exitcode is not None and r not in got]
+                dead = [(r, p) for r, p in zip(ranks, procs) if p.exitcode is not None and r not in got]
                 if dead:
                     # give a result that is still in flight a moment to land
                     try:
                         rank, ok, payload = results.get(timeout=2.0)
                     except queue.Empty:
-                        failure = f"rank {dead[0]} exited with code {procs[dead[0]].exitcode} and no result"
+                        failure = f"rank {dead[0][0]} exited with code {dead[0][1].exitcode} and no result"
                         break
                 else:
                     continue
@@ -348,4 +360,4 @@ def launch(
         shutil.rmtree(tmp, ignore_errors=True)
     if failure is not None:
         raise RuntimeError(f"launch({getattr(fn, '__name__', fn)}, world_size={world_size}): {failure}")
-    return [got[r] for r in range(world_size)]
+    return [got[r] for r in ranks]

@@ -213,6 +213,14 @@ class NeighborSampler:
     frontier_caps: Optional[Tuple[int, ...]] = None
     dedup_last: bool = True
 
+    def structure_tensors(self):
+        """The structure this sampler draws from, ``(indptr, indices,
+        probs or None)``: the reference's ``GetCPUStructureTensors``.  On
+        one device the graph itself is the cache, so the cached and base
+        structure coincide; the sharded getters are
+        ``parallel.graph_dist.ShardedGraph``'s."""
+        return self.graph.indptr, self.graph.indices, self.graph.probs
+
     def sample(self, seeds, seed_mask, key):
         """Returns ``(blocks, stats)`` — see :func:`sample_blocks`."""
         return sample_blocks(

@@ -37,6 +37,9 @@ def test_walk_covers_the_package():
                    "training/checkpoint.py", "ops/sampling.py", "graph.py", "ops/quantize.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/feature_store.py",
                    "parallel/graph_dist.py", "parallel/trainer_dist.py", "parallel/inference_dist.py",
-                   "parallel/host_dist.py", "parallel/host_struct.py", "entry.py"):
+                   "parallel/host_dist.py", "parallel/host_struct.py", "entry.py",
+                   "dataloading/preprocess.py", "examples/__init__.py", "examples/graphsage/__init__.py",
+                   "examples/graphsage/node_classification.py",
+                   "examples/graphsage/node_classification_dist.py", "scripts/bench_scale.py"):
         assert f"dist_gnn_tpu_torch/{module}" in names
     assert len(names) >= 20
