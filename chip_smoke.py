@@ -21,10 +21,17 @@ weights from a seed.  Phases, one JSON line each:
    one kernel per hop) held bit for bit against ``sample_uniform_plain``
    on the card at the three hops of the main path, without and with
    replacement, and on a graph whose rows have degree 0, 1, k, k + 1, 2^b,
-   2^b + 1 and a hub, with padded seeds, under int32 and int64 ``indptr``;
-   an edgeless graph answered without a launch; K6's times beside the
-   plain version's and its bound, and one ``sample_blocks`` call's
-   kernels, device ms and wall ms;
+   2^b + 1 and a hub, with padded seeds, under int32 and int64 ``indptr``,
+   and on seeds that are all the graph's longest row (the Feistel walk on
+   its largest domain), in both modes, each case once below and once above
+   the 131,072 slots from which a hop without replacement takes the packed
+   kernel, the profiler checked to name the kernel that ran; an edgeless
+   graph answered
+   without a launch; one ``torch.cuda.graph`` capture of a hop, replayed
+   on new seeds and keys copied into its buffers, equal to the plain
+   version; K6's times (also queued behind a device sleep, which times
+   the stream and not the host) beside the plain version's and its bound,
+   and one ``sample_blocks`` call's kernels, device ms and wall ms;
 4. kernels: K1 (``gather_rows``) and K3 (``gather_mean``) held against
    their plain versions on the card at the main path's shapes, plus f32,
    an odd width, all-masked rows and an empty input; times of the kernel
@@ -50,7 +57,11 @@ weights from a seed.  Phases, one JSON line each:
 7. kernels: the slot transpose and the K3 backward at SAGE layers 1 and
    2 and at a power-law slot table of 70,000 x 16 slots, above the 2^20
    keys of one bitmap window, with hub rows (f32 bitwise equal over two
-   calls), and K4 and K5 at the three GAT layers, held against their
+   calls); the transpose also built twice on one input (equal offsets and
+   lists), on a 2^21-slot table one of whose rows more than 10,000 valid
+   slots name, as four kernels and no memset a build, and captured once
+   in a ``torch.cuda.graph`` whose replay on a new slot table equals the
+   plain version; and K4 and K5 at the three GAT layers, held against their
    plain versions on the card in bf16, plus f32, an odd width and
    all-masked rows; times as in 4.
    Before K4/K5: each GAT layer's launch plan (rows, head split, shared
@@ -272,6 +283,7 @@ from unittest import mock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
 FAN_OUT = (15, 10, 5)
+K6_PACKED_SLOTS = 131_072  # csrc/sampling.cu kQueueSlots: K6's packed kernel from here up
 BATCH = 512
 N_REQUESTS = 8
 N_STEPS = 8
@@ -991,7 +1003,8 @@ def main() -> int:
     from dist_gnn_tpu_torch.parallel.mesh import Mesh, initialize_distributed, launch, make_mesh
     from dist_gnn_tpu_torch.parallel.trainer_dist import DistTrainer
     from dist_gnn_tpu_torch.sampler import layer_capacities, sample_blocks
-    from dist_gnn_tpu_torch.scripts import bench_gather2, bench_gather_mean, bench_gather_rows, bench_k8, bench_sampler
+    from dist_gnn_tpu_torch.scripts import (bench_gather2, bench_gather_mean, bench_gather_rows, bench_k6, bench_k8,
+                                            bench_sampler)
     from dist_gnn_tpu_torch.training import HostTierTrainer, Trainer, masked_nll_loss
     from dist_gnn_tpu_torch.training.pipeline import batch_keys
     from dist_gnn_tpu_torch.utils import native
@@ -1089,7 +1102,7 @@ def main() -> int:
     # replacement on [B, k] keys from Generator(2)
     rgen = torch.Generator().manual_seed(2)
     k6_hops = []
-    k6_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms"), 0.0)
+    k6_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "queued_ms"), 0.0)
     for i, (blk, kk) in enumerate(zip(blocks, reversed(FAN_OUT))):
         s_hop = blk.seeds
         B = s_hop.shape[0]
@@ -1120,16 +1133,31 @@ def main() -> int:
                 "indptr_sectors": ptr_sectors, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "ms": cuda_time_ms(lambda: sampling.sample_uniform(graph, s_hop, kk, False, key)),
                 "device_ms": device_ms(lambda: sampling.sample_uniform(graph, s_hop, kk, False, key),
-                                       "sample_uniform_kernel"),
+                                       "sample_uniform"),
+                "queued_ms": bench_k6.queued_ms(lambda: sampling.sample_uniform(graph, s_hop, kk, False, key)),
                 "plain_ms": cuda_time_ms(lambda: sampling.sample_uniform_plain(graph, s_hop, kk, False, key),
                                          iters=3, warmup=1),
             })
             for key_ in k6_sum:
                 k6_sum[key_] += hop[key_] or 0.0
         k6_hops.append(hop)
+    # Which K6 kernel a call without replacement runs: csrc/sampling.cu
+    # takes the packed one at kQueueSlots slots or more, the in-place one
+    # below (and with replacement); the profiler names the one it ran
+    def k6_kernel(s_t, kk, replace):
+        return "packed" if not replace and s_t.shape[0] * kk >= K6_PACKED_SLOTS else "in_place"
+
+    def k6_ran(fn, which):
+        kernels, _ = profile_device(fn, iters=1)
+        ran = sorted({"packed" if "sample_uniform_packed" in name else "in_place"
+                      for name in kernels if "sample_uniform" in name})
+        check(ran == [which], f"K6 ran {ran}, not the {which} kernel: {sorted(kernels)[:6]}")
+
     # rows of degree 0, 1, k, k + 1, 2^b, 2^b + 1 and a hub of 100,000, each
     # seeded, among random rows and padded seeds, under int32 and int64
-    # indptr; an edgeless graph launches nothing
+    # indptr; the seeds once (in-place kernel) and tiled past kQueueSlots
+    # slots (packed kernel without replacement); an edgeless graph
+    # launches nothing
     erng = np.random.default_rng(3)
     ek = 5
     degs = [0, 1, ek, ek + 1, 8, 9, 32, 33, 128, 129, 100_000] + list(erng.integers(0, 41, 500))
@@ -1138,19 +1166,62 @@ def main() -> int:
     ehg = HostGraph.from_coo(erng.integers(0, n_e, e_dst.shape[0]), e_dst, n_e)
     e_seeds = np.concatenate([np.arange(len(degs)), erng.integers(0, n_e, 1500)]).astype(np.int32)
     e_seeds[::7] = INVALID_ID
-    e_seeds_t = torch.from_numpy(e_seeds).to(cuda)
+    e_tiles = -(-K6_PACKED_SLOTS // (e_seeds.shape[0] * ek))
     edge_rows = []
     for indptr_dtype in (np.int32, np.int64):
         eg = HostGraph(indptr=ehg.indptr.astype(indptr_dtype), indices=ehg.indices).to_device(cuda)
+        for tiles in (1, e_tiles):
+            e_seeds_t = torch.from_numpy(np.tile(e_seeds, tiles)).to(cuda)
+            B_e = e_seeds_t.shape[0]
+            for replace in (False, True):
+                key = prng.random_keys(rgen, (B_e, ek) if replace else (B_e,), cuda)
+                got = sampling.sample_uniform(eg, e_seeds_t, ek, replace, key)
+                want = sampling.sample_uniform_plain(eg, e_seeds_t, ek, replace, key)
+                torch.cuda.synchronize()
+                check(torch.equal(got.ids, want.ids) and torch.equal(got.mask, want.mask),
+                      f"K6 edge rows x{tiles}, {indptr_dtype.__name__} indptr, replace={replace}: "
+                      "differs from plain")
+                which = k6_kernel(e_seeds_t, ek, replace)
+                k6_ran(lambda: sampling.sample_uniform(eg, e_seeds_t, ek, replace, key), which)
+                edge_rows.append({"indptr": indptr_dtype.__name__, "B": B_e, "replace": replace,
+                                  "kernel": which, "valid_slots": int(got.mask.sum())})
+    check(e_tiles > 1 and sum(r["kernel"] == "packed" for r in edge_rows) == 2,
+          "K6 edge rows: the packed kernel ran on no tiled case")
+    # seeds that are all the longest row: the walk on the largest domain, 64
+    # of them (in-place kernel) and as many as make kQueueSlots slots (packed
+    # kernel without replacement)
+    hub_node = int(np.argmax(np.diff(hg.indptr.astype(np.int64))))
+    for B_h in (64, -(-K6_PACKED_SLOTS // 15)):
+        hub_seeds = torch.full((B_h,), hub_node, dtype=torch.int32, device=cuda)
         for replace in (False, True):
-            key = prng.random_keys(rgen, (e_seeds.shape[0], ek) if replace else (e_seeds.shape[0],), cuda)
-            got = sampling.sample_uniform(eg, e_seeds_t, ek, replace, key)
-            want = sampling.sample_uniform_plain(eg, e_seeds_t, ek, replace, key)
+            key = prng.random_keys(rgen, (B_h, 15) if replace else (B_h,), cuda)
+            got = sampling.sample_uniform(graph, hub_seeds, 15, replace, key)
+            want = sampling.sample_uniform_plain(graph, hub_seeds, 15, replace, key)
             torch.cuda.synchronize()
             check(torch.equal(got.ids, want.ids) and torch.equal(got.mask, want.mask),
-                  f"K6 edge rows, {indptr_dtype.__name__} indptr, replace={replace}: differs from plain")
-            edge_rows.append({"indptr": indptr_dtype.__name__, "replace": replace,
+                  f"K6 hub row x{B_h}, replace={replace}: differs from sample_uniform_plain")
+            which = k6_kernel(hub_seeds, 15, replace)
+            k6_ran(lambda: sampling.sample_uniform(graph, hub_seeds, 15, replace, key), which)
+            edge_rows.append({"hub_row": True, "B": B_h, "replace": replace, "kernel": which,
                               "valid_slots": int(got.mask.sum())})
+    # one capture of the last hop, replayed on new seeds and keys in its buffers
+    s_buf, k_buf = blocks[-1].seeds.clone(), hop_keys[-1].to(cuda)
+    sampling.sample_uniform(graph, s_buf, FAN_OUT[0], False, k_buf)
+    torch.cuda.synchronize()
+    k6_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(k6_graph):
+        k6_captured = sampling.sample_uniform(graph, s_buf, FAN_OUT[0], False, k_buf)
+    new_seeds = torch.randint(0, hg.num_nodes, s_buf.shape, dtype=torch.int32, device=cuda)
+    new_seeds[::9] = INVALID_ID
+    new_keys = prng.random_keys(rgen, k_buf.shape, cuda)
+    s_buf.copy_(new_seeds)
+    k_buf.copy_(new_keys)
+    k6_graph.replay()
+    want = sampling.sample_uniform_plain(graph, new_seeds, FAN_OUT[0], False, new_keys)
+    torch.cuda.synchronize()
+    check(torch.equal(k6_captured.ids, want.ids) and torch.equal(k6_captured.mask, want.mask),
+          "K6 captured in a CUDA graph: the replay differs from sample_uniform_plain")
+    del k6_graph, k6_captured
     empty_g = HostGraph(indptr=np.zeros(11, np.int32), indices=np.zeros(0, np.int32)).to_device(cuda)
     before = sampling.sample_uniform.launches
     got = sampling.sample_uniform(empty_g, torch.arange(4, dtype=torch.int32, device=cuda), 3, False,
@@ -1174,7 +1245,7 @@ def main() -> int:
           "max_abs_err": 0.0, **k6_sum, "bound_by": "bytes", "library_ms": None}
     emit({"phase": "kernel", "kernel": "K6 sample_uniform", "exact": True,
           "times_are": "sums over the three hops of one request (replace=False)", "hops": k6_hops,
-          "edge_rows": edge_rows, "edgeless_graph_launches": 0,
+          "edge_rows": edge_rows, "edgeless_graph_launches": 0, "cuda_graph_replay_equal": True,
           "library": "none: no one PyTorch call samples a CSC graph",
           "sample_blocks": sample_stage, **k6, **card})
 
@@ -1906,7 +1977,7 @@ def main() -> int:
     # is timed on its own as well.
     k3b_layers, st_layers, k3b_err, st_diff = [], [], 0.0, 0.0
     k3b_sum = dict.fromkeys(sum_keys, 0.0)
-    st_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "host_us_per_call"), 0.0)
+    st_sum = dict.fromkeys(("ms", "plain_ms", "bound_ms", "device_ms", "host_us_per_call", "queued_ms"), 0.0)
     for x, timed in zip(k3_inputs[1:], k3_timed["k3_bwd"]):
         l, h, slots, m, d_out = x["layer"], x["h"], x["slots"], x["mask"], x["d_out"]
         S, kk = slots.shape
@@ -1922,12 +1993,20 @@ def main() -> int:
             "library_ms": cuda_time_ms(lambda: torch.autograd.grad(
                 bag_out, table, d_out, retain_graph=True)),
         }
-        n_valid = int(m.sum())
-        st_bytes = S * kk * 5 + (cap + 1) * 4 + n_valid * 4  # slots, mask read; offsets, entries written
+        # slots and mask read; offsets, entries, their divisors and each row's divisor written
+        st_bytes = bench_k6.transpose_bytes(slots, m, cap)
         st = {"layer": l, "S": S, "k": kk, "cap": cap, "bytes": st_bytes,
               **bench_gather_mean.time_call(lambda: gather.slot_transpose(slots, m, cap)),
+              "queued_ms": bench_k6.queued_ms(lambda: gather.slot_transpose(slots, m, cap)),
               "plain_ms": cuda_time_ms(lambda: gather.slot_transpose_plain(slots, m, cap)),
               "bound_ms": st_bytes / HBM_BYTES_PER_S * 1e3}
+        check(round(st["device_ops_per_call"]) == 4 and not any("Memset" in op for op in st["device_ms_by_op"]),
+              f"slot transpose layer {l}: {st['device_ms_by_op']} is not four kernels and no memset")
+        # built twice on one input: equal offsets and lists
+        tp = gather.slot_transpose_plain(slots, m, cap)
+        for _ in range(2):
+            st_diff = max(st_diff, same_transpose(gather.slot_transpose(slots, m, cap), tp, cap, S * kk,
+                                                  f"layer {l}, built again"))
         for acc, row in ((k3b_sum, lay), (st_sum, st)):
             for key in acc:
                 acc[key] += row[key] or 0.0
@@ -1961,6 +2040,32 @@ def main() -> int:
     big_errs.update({"S": big_S, "k": big_k, "cap": big_cap, "F": big_F, "slots": big_S * big_k,
                      "hub_rows": int((big_named > 32).sum()), "most_named": int(big_named.max())})
     del u, big_s, big_m, big_named, big_h, big_d
+    # a 2^21-slot table over 400,000 rows, one of which more than 10,000
+    # valid slots name (bench_k6's tr_hub case), against the plain version;
+    # then one capture of layer 1's transpose, replayed on a new slot table
+    # copied into its buffers
+    hub_s, hub_m, hub_named = bench_k6.hub_table(cuda)
+    st_diff = max(st_diff, same_transpose(gather.slot_transpose(hub_s, hub_m, bench_k6.HUB_CAP),
+                                          gather.slot_transpose_plain(hub_s, hub_m, bench_k6.HUB_CAP),
+                                          bench_k6.HUB_CAP, hub_s.numel(), "the 2^21-slot hub table"))
+    st_hub = {"S": hub_s.shape[0], "k": hub_s.shape[1], "cap": bench_k6.HUB_CAP, "hub_named": hub_named,
+              **bench_gather_mean.time_call(lambda: gather.slot_transpose(hub_s, hub_m, bench_k6.HUB_CAP))}
+    del hub_s, hub_m
+    x1 = k3_inputs[1]
+    sl_buf, mk_buf, cap1 = x1["slots"].clone(), x1["mask"].clone(), x1["h"].shape[0]
+    gather.slot_transpose(sl_buf, mk_buf, cap1)
+    torch.cuda.synchronize()
+    st_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(st_graph):
+        st_captured = gather.slot_transpose(sl_buf, mk_buf, cap1)
+    rgen5 = torch.Generator(device=cuda).manual_seed(5)
+    sl_buf.copy_(torch.randint(0, cap1, sl_buf.shape, dtype=torch.int32, device=cuda, generator=rgen5))
+    mk_buf.copy_(torch.rand(mk_buf.shape, device=cuda, generator=rgen5) < 0.7)
+    st_graph.replay()
+    torch.cuda.synchronize()
+    st_diff = max(st_diff, same_transpose(st_captured, gather.slot_transpose_plain(sl_buf, mk_buf, cap1), cap1,
+                                          sl_buf.numel(), "layer 1, replayed from a CUDA graph"))
+    del st_graph, st_captured, sl_buf, mk_buf
     k3b = {
         "name": "gather_mean_bwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
         "replaces": "dist_gnn_tpu/ops/gather_pallas.py:279", "max_abs_err": k3b_err,
@@ -1978,6 +2083,7 @@ def main() -> int:
           "library_is": "backward of F.embedding_bag(mode='mean')", **k3b, **card})
     emit({"phase": "kernel", "kernel": "slot_transpose", "exact": True,
           "times_are": "sums over SAGE layers 1 and 2 of one step", "layers": st_layers,
+          "hub_table": st_hub, "ops_per_build": 4, "memsets_per_build": 0, "cuda_graph_replay_equal": True,
           "library": "none: no one PyTorch call builds the CSR transpose", **st_k, **card})
 
     # K4 and K5 at the three layers of the GAT bench config on one request's

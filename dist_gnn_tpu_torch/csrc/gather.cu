@@ -49,11 +49,19 @@
 //   is the port's own.  Bound by bytes: d_out, slots and mask read once,
 //   d_h written once.  Design: the gather form, from the slot table's
 //   transpose (a CSR of each source row's valid flat slots s*k + j, built
-//   by count, scan and fill kernels in build_transpose, which
-//   dg_slot_transpose runs alone and dg_gather_mean runs after K3 in the
-//   same call when the forward knows a gradient will be needed; the scan's
-//   last block to finish adds up the tiles, so no pass waits on another
-//   launch).  Each row of d_h is
+//   by build_transpose, which dg_slot_transpose runs alone and
+//   dg_gather_mean runs after K3 in the same call when the forward knows a
+//   gradient will be needed).  The build moves well under a megabyte at
+//   the SAGE layers, so its time is that of its launches and the memory
+//   round trips between its phases: it is four kernels (zero, count, scan,
+//   fill) and no memset, chained by programmatic dependent launch so that
+//   each launches while the one before runs and waits only for its
+//   results.  Also measured on the H100 and dropped, each slower than the
+//   parent's memset and three plain launches at both SAGE layers or than
+//   this form (PERF.md): one cooperative launch parted by grid-wide
+//   barriers; one cluster of 8 blocks parted by the cluster's barrier;
+//   count and fill with one atomic per warp for the lanes that name one
+//   row (__match_any_sync); blocks of 1,024 threads.  Each row of d_h is
 //   summed in f32 registers in increasing flat index and written once in
 //   d_out's dtype, zeros where no slot names it: no f32 [cap, F] buffer, no
 //   zero fill, no cast, no atomics on the features.  Rows named by up to 32
@@ -426,25 +434,7 @@ int launch_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask,
 
 // ---- K3 backward: the slot table's transpose, then one gather per row -----
 
-// Per row s of the slot table: max(cnt_s, 1) into den, and one count for
-// each source row a valid slot names.
-__global__ void __launch_bounds__(kThreads)
-transpose_count_kernel(const int32_t* __restrict__ slots, const uint8_t* __restrict__ mask,
-                       int32_t* __restrict__ counts, float* __restrict__ den, int64_t S, int k,
-                       int64_t cap) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; s < S; s += stride) {
-    int c = 0;
-    for (int j = 0; j < k; ++j) {
-      if (!mask[s * k + j]) continue;
-      atomicAdd(counts + clamp_row(slots[s * k + j], cap), 1);
-      ++c;
-    }
-    den[s] = (float)(c > 1 ? c : 1);
-  }
-}
-
-constexpr int kScanThreads = 1024;  // counts scanned per block; 32 warps
+constexpr int kScanThreads = 1024;  // rows a block of the transpose's scan takes; 32 warps
 
 constexpr int kLightMax = 32;  // lists up to this long: one warp a row, in registers
 constexpr int kLightBatch = 4;  // row loads a lane of the light kernel keeps in flight
@@ -453,16 +443,18 @@ constexpr int kLightBatch = 4;  // row loads a lane of the light kernel keeps in
 // 4 * (cap + 1) int32, n = S * k): what the backward reads first, then
 // scratch.
 struct TransposeWs {
-  int32_t* offsets;      // [cap + 1]: row r's list is entries[offsets[r], offsets[r + 1])
-  int32_t* entries;      // [n]: flat slots s*k + j, valid ones only, by row
-  float* entry_den;      // [n]: the divisor of each entry's row s, beside entries (a hub
-                         // row's span: the backward's ordered list, as int32)
-  float* den;            // [S]: max(cnt_s, 1), the mean's divisor of row s
-  int32_t* counts;       // [cap] per-row counts, then the scan's ticket [1], then n_heavy [1]
-  int32_t* n_heavy;      // rows whose list is longer than kLightMax
-  int32_t* local;        // [cap] exclusive prefix within each kScanThreads tile
-  int32_t* tile_prefix;  // [tiles + 1] exclusive prefix of the tiles, then the total
-  int32_t* heavy_rows;   // [cap]: the n_heavy rows, in no fixed order
+  int32_t* offsets;     // [cap + 1]: row r's list is entries[offsets[r], offsets[r + 1])
+  int32_t* entries;     // [n]: flat slots s*k + j, valid ones only, by row
+  float* entry_den;     // [n]: the divisor of each entry's row s, beside entries (a hub
+                        // row's span: the backward's ordered list, as int32)
+  float* den;           // [S]: max(cnt_s, 1), the mean's divisor of row s
+  int32_t* counts;      // [cap] per-row counts (the fill counts them back to 0), then the
+                        // scan's ticket [1]
+  int32_t* n_heavy;     // rows whose list is longer than kLightMax
+  int32_t* local;       // [cap] exclusive prefix within each kScanThreads range of rows
+  int32_t* range_sums;  // [ranges + 1] each range's sum, then (as its prefix) what comes
+                        // before it; ranges = ceil(cap / kScanThreads)
+  int32_t* heavy_rows;  // [cap]: the n_heavy rows, in no fixed order
 };
 
 TransposeWs transpose_ws(int32_t* ws, int64_t cap, int64_t S, int k) {
@@ -474,8 +466,8 @@ TransposeWs transpose_ws(int32_t* ws, int64_t cap, int64_t S, int k) {
   w.counts = reinterpret_cast<int32_t*>(w.den + S);
   w.n_heavy = w.counts + cap + 1;
   w.local = w.n_heavy + 1;
-  w.tile_prefix = w.local + cap;
-  w.heavy_rows = w.tile_prefix + (cap + kScanThreads - 1) / kScanThreads + 1;
+  w.range_sums = w.local + cap;
+  w.heavy_rows = w.range_sums + (cap + kScanThreads - 1) / kScanThreads + 1;
   return w;
 }
 
@@ -507,87 +499,141 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t x, int32_t* warp
   return inc - x + (w > 0 ? warp_total[w - 1] : 0);
 }
 
-// Each block scans one tile of kScanThreads counts (coalesced, one each)
-// into local[] and leaves its sum in tile_prefix[tile]; the last block to
-// finish (by an atomic ticket) scans the tile sums in place.  The fill
-// adds the two.
+// The build: four kernels, zero, count, scan and fill, each launched with
+// programmatic stream serialisation (launch_chained): it
+// may be launched as the one before drains, and it waits before its first
+// access to memory until that one has finished and its writes are
+// visible, so the stream keeps the order of plain launches without the
+// gap between them.  (Letting the next one launch as soon as a kernel
+// starts, by griddepcontrol.launch_dependents, was no faster on the
+// H100.)  The scan's blocks take kScanThreads rows each; the last to
+// finish (by the ticket) turns the range sums into prefixes in place.
+
+// Wait until the grid before this one on the stream has finished and its
+// writes are visible (what cudaGridDependencySynchronize() does; at once
+// after a plain launch).
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+transpose_zero_kernel(TransposeWs w, int64_t cap) {
+  wait_for_previous_grid();
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i <= cap;
+       i += (int64_t)gridDim.x * blockDim.x)
+    w.counts[i] = 0;  // and the ticket
+  if (blockIdx.x == 0 && threadIdx.x == 0) *w.n_heavy = 0;
+}
+
+// Count: one per valid slot on its source row's count; and each row s's
+// divisor max(cnt_s, 1).
+__global__ void __launch_bounds__(kThreads)
+transpose_count_kernel(const int32_t* __restrict__ slots, const uint8_t* __restrict__ mask,
+                       TransposeWs w, int64_t S, int k, int64_t cap) {
+  wait_for_previous_grid();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t e = tid; e < S * k; e += stride)
+    if (mask[e]) atomicAdd(w.counts + clamp_row(slots[e], cap), 1);
+  for (int64_t s = tid; s < S; s += stride) {
+    int c = 0;
+    for (int j = 0; j < k; ++j) c += mask[s * k + j] != 0;
+    w.den[s] = (float)(c > 1 ? c : 1);
+  }
+}
+
 __global__ void __launch_bounds__(kScanThreads)
-transpose_scan_kernel(const int32_t* __restrict__ counts, int32_t* __restrict__ local,
-                      int32_t* tile_prefix, unsigned* ticket, int64_t cap) {
+transpose_scan_kernel(TransposeWs w, int64_t cap) {
   __shared__ int32_t warp_total[32];
   __shared__ bool last;
+  wait_for_previous_grid();
   const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
   int32_t total;
-  const int32_t excl = block_exclusive_scan(i < cap ? counts[i] : 0, warp_total, &total);
-  if (i < cap) local[i] = excl;
+  const int32_t ex = block_exclusive_scan(i < cap ? w.counts[i] : 0, warp_total, &total);
+  if (i < cap) w.local[i] = ex;
   if (threadIdx.x == 0) {
-    tile_prefix[blockIdx.x] = total;
+    w.range_sums[blockIdx.x] = total;
     __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    last = atomicAdd(reinterpret_cast<unsigned*>(w.counts + cap), 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const volatile int32_t* sums = tile_prefix;
+  volatile int32_t* sums = w.range_sums;
   int32_t carry = 0;
   for (int64_t b0 = 0; b0 < gridDim.x; b0 += kScanThreads) {
     const int64_t b = b0 + threadIdx.x;
     int32_t sum;
     const int32_t ex = block_exclusive_scan(b < gridDim.x ? sums[b] : 0, warp_total, &sum);
-    if (b < gridDim.x) tile_prefix[b] = carry + ex;
+    if (b < gridDim.x) sums[b] = carry + ex;
     carry += sum;
   }
-  if (threadIdx.x == 0) tile_prefix[gridDim.x] = carry;
+  if (threadIdx.x == 0) sums[gridDim.x] = carry;
 }
 
-// Place each valid slot's flat index s*k + j in its source row's list, and
-// write the final offsets (thread e < n fills, thread e <= cap writes
-// offsets[e] and lists row e among the heavy rows if its list is longer
-// than kLightMax).  A row's cursor counts down from its count, so the order
-// within a list is the atomics' and does not matter (the gather sorts).
+// Fill: the final offsets and the heavy rows (thread i <= cap), and each
+// valid slot's flat index s*k + j, with its row's divisor, in its source
+// row's list (thread e < n).  Row r's list begins at local[r] plus its
+// range's prefix; its count counts down to 0 as its places are taken, so
+// the order within a list is the atomics' (the backward sorts).
 __global__ void __launch_bounds__(kThreads)
 transpose_fill_kernel(const int32_t* __restrict__ slots, const uint8_t* __restrict__ mask,
-                      TransposeWs w, int64_t n, int k, int64_t cap, int64_t tiles) {
+                      TransposeWs w, int64_t S, int k, int64_t cap, int64_t ranges) {
+  wait_for_previous_grid();
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t end = n > cap + 1 ? n : cap + 1;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < end; e += stride) {
-    if (e < cap) {
-      const int32_t lo = w.local[e] + w.tile_prefix[e / kScanThreads];
-      const int32_t hi = e + 1 < cap ? w.local[e + 1] + w.tile_prefix[(e + 1) / kScanThreads]
-                                     : w.tile_prefix[tiles];
-      w.offsets[e] = lo;
-      if (hi - lo > kLightMax) w.heavy_rows[atomicAdd(w.n_heavy, 1)] = (int32_t)e;
-    } else if (e == cap) {
-      w.offsets[e] = w.tile_prefix[tiles];
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int32_t total = w.range_sums[ranges];
+  for (int64_t i = tid; i <= cap; i += stride) {
+    const int32_t start = i < cap ? w.local[i] + w.range_sums[i / kScanThreads] : total;
+    w.offsets[i] = start;
+    if (i < cap) {
+      const int32_t end =
+          i + 1 < cap ? w.local[i + 1] + w.range_sums[(i + 1) / kScanThreads] : total;
+      if (end - start > kLightMax) w.heavy_rows[atomicAdd(w.n_heavy, 1)] = (int32_t)i;
     }
-    if (e < n && mask[e]) {
-      const int64_t r = clamp_row(slots[e], cap);
-      const int32_t start = w.local[r] + w.tile_prefix[r / kScanThreads];
-      const int32_t pos = start + atomicSub(w.counts + r, 1) - 1;
-      w.entries[pos] = (int32_t)e;
-      w.entry_den[pos] = w.den[e / k];
-    }
+  }
+  for (int64_t e = tid; e < S * k; e += stride) {
+    if (!mask[e]) continue;
+    const int64_t r = clamp_row(slots[e], cap);
+    const int32_t pos = w.local[r] + w.range_sums[r / kScanThreads] + atomicSub(w.counts + r, 1) - 1;
+    w.entries[pos] = (int32_t)e;
+    w.entry_den[pos] = w.den[(int32_t)e / k];
   }
 }
 
-// The slot table's transpose into ws (cap >= 1): zero the counts, the
-// scan's ticket and the heavy-row count, then count, scan and fill.
+template <typename... Params, typename... Args>
+cudaError_t launch_chained(void (*kernel)(Params...), int64_t blocks, int threads, cudaStream_t st,
+                           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(blocks > 0 ? blocks : 1));
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The slot table's transpose into ws (cap >= 1): four launches, no memset.
 int build_transpose(const int32_t* slots, const uint8_t* mask, int64_t cap, int64_t S, int k,
                     int32_t* ws, cudaStream_t st) {
-  const int64_t n = S * k;
   const TransposeWs w = transpose_ws(ws, cap, S, k);
-  const cudaError_t err = cudaMemsetAsync(w.counts, 0, (size_t)(cap + 2) * sizeof(int32_t), st);
-  if (err != cudaSuccess) return (int)err;
-  if (S > 0)
-    transpose_count_kernel<<<(unsigned)min64((S + kThreads - 1) / kThreads, kMaxBlocks), kThreads,
-                             0, st>>>(slots, mask, w.counts, w.den, S, k, cap);
-  const int64_t tiles = (cap + kScanThreads - 1) / kScanThreads;
-  transpose_scan_kernel<<<(unsigned)tiles, kScanThreads, 0, st>>>(
-      w.counts, w.local, w.tile_prefix, reinterpret_cast<unsigned*>(w.counts + cap), cap);
-  const int64_t end = n > cap + 1 ? n : cap + 1;
-  transpose_fill_kernel<<<(unsigned)min64((end + kThreads - 1) / kThreads, kMaxBlocks), kThreads, 0,
-                          st>>>(slots, mask, w, n, k, cap, tiles);
-  return (int)cudaGetLastError();
+  const int64_t ranges = (cap + kScanThreads - 1) / kScanThreads;
+  const int64_t rows_blocks = min64((cap + kThreads) / kThreads, kMaxBlocks);
+  const int64_t slot_blocks = min64((S * k + kThreads - 1) / kThreads, kMaxBlocks);
+  const int64_t fill_blocks = slot_blocks > rows_blocks ? slot_blocks : rows_blocks;
+  cudaError_t err = launch_chained(transpose_zero_kernel, rows_blocks, kThreads, st, w, cap);
+  if (err == cudaSuccess)
+    err = launch_chained(transpose_count_kernel, slot_blocks, kThreads, st, slots, mask, w, S, k,
+                         cap);
+  if (err == cudaSuccess)
+    err = launch_chained(transpose_scan_kernel, ranges, kScanThreads, st, w, cap);
+  if (err == cudaSuccess)
+    err = launch_chained(transpose_fill_kernel, fill_blocks, kThreads, st, slots, mask, w, S, k,
+                         cap, ranges);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // d_h[r] = sum over row r's list, in increasing flat index, of
@@ -911,7 +957,7 @@ int dg_gather_mean(const void* h, const int32_t* slots, const uint8_t* mask, voi
 // allocates cap + 1 + 2*S*k + S + 4 * (cap + 1) int32): offsets [cap + 1]
 // at ws, then entries [S*k], flat indices s*k + j of the valid slots
 // grouped by row, then their rows' divisors, then each row's divisor.
-// Four device operations: zero the counts, count, scan, fill.
+// Four launches chained by programmatic dependent launch, no memset.
 int dg_slot_transpose(const int32_t* slots, const uint8_t* mask, int64_t cap, int64_t S, int k,
                       int32_t* ws, void* stream) {
   if (cap <= 0 || S < 0 || k < 0) return (int)cudaErrorInvalidValue;

@@ -43,13 +43,34 @@
 //   indices that their positions fall in (a row of degree <= k reads one
 //   contiguous run; a longer row's picks may share sectors), the valid
 //   seeds the sectors of their indptr pairs; each row reads its seed and
-//   key; ids and mask are written once.  The Feistel arithmetic (~2 passes of 8 rounds of
-//   ~12 integer operations per valid slot) is far below the card's integer
-//   rate.  Design: one thread per (row, slot), so a warp covers a few
-//   consecutive rows and their slots' outputs are stored coalesced; the
-//   threads of a row read the same indptr pair, which the warp's load
-//   broadcasts.  Seeds outside [0, N) are clamped into the graph and
-//   positions into [0, E), so no read leaves an allocation.
+//   key; ids and mask are written once.  The Feistel walk is the larger
+//   cost at the last hop all the same: ~110 integer operations a pass
+//   (three multiplies a round), ~1.5 passes per slot of a row longer than
+//   k, and a warp runs as many passes as its longest walk: with
+//   replacement, which has no walk, the same hop takes a third of the time
+//   (PERF.md).
+//
+//   Design: one thread per (row, slot), so a warp covers a few
+//   consecutive rows, its slots' outputs are stored coalesced, and a hop
+//   has as many loads in flight as it has slots; the threads of a row read
+//   the same indptr pair, which the warp's load broadcasts.  A hop of
+//   kQueueSlots (131,072) slots or more without replacement (the main
+//   path's last) takes the packed kernel: a block takes kThreads
+//   consecutive slots and finds its first row by one 64-bit division (each
+//   thread its own by a 32-bit one); the first pass of the network runs in
+//   every thread that needs it, and the slots still out of range after it
+//   (fewer than half, for a domain just above a power of two) go into the
+//   block's queue in shared memory and walk on packed into the block's
+//   first warps, so a long
+//   walk runs beside other walks, not beside lanes that are done.  Below
+//   that size the queue's three barriers cost more than the walks they
+//   pack, and the hop keeps the walk in place.  Also tried on the H100
+//   and dropped, each slower at the last hop (PERF.md): a lane group per
+//   row whose first lane reads the header, several rows a group and a
+//   warp's walk queue; and four slots a thread with a block queue from
+//   which each thread takes the next walk as its own ends.  Seeds outside
+//   [0, N) are clamped into the graph and positions into [0, E), so no
+//   read leaves an allocation.
 //
 // Keys arrive as int64 holding uint32 values (ops/prng.py random_keys): the
 // kernel reads their low 32 bits.  indptr is int32 below 2^31 edges and
@@ -69,6 +90,10 @@ constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kRoundStep = 0x7F4A7C15u;
 constexpr int kRounds = 8;     // prng.py _FEISTEL_ROUNDS
 constexpr int kWalkSteps = 12;  // prng.py _WALK_STEPS
+constexpr unsigned kFull = 0xffffffffu;
+
+// A hop of this many slots or more, without replacement, takes the packed kernel.
+constexpr int64_t kQueueSlots = 131072;
 
 // murmur3 fmix32 (prng.py mix32)
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -110,6 +135,16 @@ __device__ __forceinline__ uint32_t feistel_permutation(uint32_t j, uint32_t d, 
   return y < d ? y : y % d;
 }
 
+// One pass of the same network: feistel_permutation's step.
+__device__ __forceinline__ uint32_t feistel_pass(uint32_t x, uint32_t d, uint32_t key) {
+  int bits = 32 - __clz((int)(d - 1u));
+  bits = bits > 2 ? bits : 2;
+  const int lo = (bits + 1) >> 1;
+  return feistel(x, lo, bits - lo, key);
+}
+
+// K6 for a hop of fewer than kQueueSlots slots: one thread per (row, slot),
+// each walking its own slot (the parent design, kept as it was).
 template <typename IP>
 __global__ void __launch_bounds__(kThreads)
 sample_uniform_kernel(const IP* __restrict__ indptr, const int32_t* __restrict__ indices,
@@ -149,14 +184,97 @@ sample_uniform_kernel(const IP* __restrict__ indptr, const int32_t* __restrict__
   }
 }
 
+// K6 without replacement for a hop of kQueueSlots slots or more: as
+// sample_uniform_kernel, a block taking kThreads consecutive slots (one
+// 64-bit division a block, then a 32-bit one a thread), but the slots
+// still out of range after the first pass go into the block's queue in
+// shared memory and walk on packed into the block's first warps.
+template <typename IP>
+__global__ void __launch_bounds__(kThreads)
+sample_uniform_packed_kernel(const IP* __restrict__ indptr, const int32_t* __restrict__ indices,
+                             const int32_t* __restrict__ seeds, const int64_t* __restrict__ keys,
+                             int32_t* __restrict__ ids, uint8_t* __restrict__ mask, int64_t B,
+                             int k, int64_t n_nodes, int64_t n_edges) {
+  __shared__ uint32_t q_y[kThreads], q_d[kThreads], q_k[kThreads];
+  __shared__ int n_walk;
+  const int lane = threadIdx.x & 31;
+  const int64_t total = B * k;
+  if (threadIdx.x == 0) n_walk = 0;
+  for (int64_t e0 = (int64_t)blockIdx.x * kThreads; e0 < total; e0 += (int64_t)gridDim.x * kThreads) {
+    const int64_t b0 = e0 / k;
+    const int local = (int)(e0 - b0 * k) + (int)threadIdx.x;
+    const int row = local / k;
+    const int64_t b = b0 + row, e = e0 + threadIdx.x;
+    const int j = local - row * k;
+    const bool in = e < total;
+    int64_t start = 0;
+    int32_t deg = 0;
+    uint32_t key = 0;
+    if (in) {
+      const int32_t seed = seeds[b];
+      key = (uint32_t)keys[b];
+      if (seed != kInvalid) {  // an INVALID_ID seed has degree 0 and reads nothing
+        int64_t node = seed;
+        node = node < 0 ? 0 : (node >= n_nodes ? n_nodes - 1 : node);
+        start = (int64_t)indptr[node];
+        deg = (int32_t)((int64_t)indptr[node + 1] - start);
+      }
+    }
+    const bool take = j < (deg < k ? deg : k);
+    const uint32_t d = (uint32_t)deg;
+    uint32_t sel = (uint32_t)j;
+    bool walk = false;
+    if (take && deg > k) {
+      sel = feistel_pass((uint32_t)j, d, key);
+      walk = sel >= d;
+    }
+    __syncthreads();  // n_walk is 0, the queue free
+    const unsigned all = __ballot_sync(kFull, walk);
+    int base = 0;
+    if (lane == 0 && all) base = atomicAdd(&n_walk, __popc(all));
+    const int at = __shfl_sync(kFull, base, 0) + __popc(all & ((1u << lane) - 1u));
+    if (walk) {
+      q_y[at] = sel;
+      q_d[at] = d;
+      q_k[at] = key;
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < n_walk) {
+      uint32_t y = q_y[threadIdx.x];
+      const uint32_t qd = q_d[threadIdx.x], qk = q_k[threadIdx.x];
+      for (int st = 0; st < kWalkSteps && y >= qd; ++st) y = feistel_pass(y, qd, qk);
+      q_y[threadIdx.x] = y < qd ? y : y % qd;
+    }
+    __syncthreads();
+    if (walk) sel = q_y[at];
+    if (threadIdx.x == 0) n_walk = 0;
+    if (in) {
+      int32_t id = kInvalid;
+      if (take) {
+        int64_t pos = start + (int64_t)sel;
+        pos = pos < 0 ? 0 : (pos >= n_edges ? n_edges - 1 : pos);
+        id = indices[pos];
+      }
+      ids[e] = id;
+      mask[e] = take;
+    }
+  }
+}
+
 template <typename IP>
 int launch_sample_uniform(const void* indptr, const int32_t* indices, const int32_t* seeds,
                           const int64_t* keys, int32_t* ids, uint8_t* mask, int64_t B, int k,
                           int64_t n_nodes, int64_t n_edges, int replace, cudaStream_t stream) {
-  const int64_t blocks = (B * k + kThreads - 1) / kThreads;
-  sample_uniform_kernel<IP><<<(unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks), kThreads, 0,
-                              stream>>>(static_cast<const IP*>(indptr), indices, seeds, keys, ids,
-                                        mask, B, k, n_nodes, n_edges, replace);
+  const int64_t total = B * k;
+  const int64_t blocks64 = (total + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(blocks64 < kMaxBlocks ? blocks64 : kMaxBlocks);
+  if (replace || total < kQueueSlots)
+    sample_uniform_kernel<IP><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const IP*>(indptr), indices, seeds, keys, ids, mask, B, k, n_nodes, n_edges,
+        replace);
+  else
+    sample_uniform_packed_kernel<IP><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const IP*>(indptr), indices, seeds, keys, ids, mask, B, k, n_nodes, n_edges);
   return (int)cudaGetLastError();
 }
 
@@ -327,7 +445,6 @@ int launch_sample_uniform(const void* indptr, const int32_t* indices, const int3
 // Both kernels take k <= kMaxK (the wrapper checks): K7's list lives in at
 // most 16 KB of shared memory a warp, K8's set and picks in 20 KB.
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 1024;
 constexpr int kChunk = 256;  // the CDF's chunk (sample_biased's chunk=256)
 constexpr int kSmemBudget = 48 * 1024;

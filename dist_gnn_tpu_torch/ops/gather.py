@@ -281,10 +281,11 @@ def _build_transpose(slots: torch.Tensor, mask: torch.Tensor, cap: int, ws: torc
 
 def slot_transpose(slots: torch.Tensor, mask: torch.Tensor, cap: int) -> SlotTranspose:
     """The transpose of an [S, k] slot table into ``cap`` source rows, which
-    K3's backward reads — on the card a zero fill and three kernels (count,
-    scan, fill), plain version :func:`slot_transpose_plain`.  On the card
-    a list's order is the atomics' (the backward puts it in order as it
-    reads); offsets equal the plain version's."""
+    K3's backward reads — on the card four kernels (zero, count, scan,
+    fill) chained by programmatic dependent launch, with no memset; plain
+    version :func:`slot_transpose_plain`.  On the card a list's order is the
+    atomics' (the backward puts it in order as it reads); offsets equal the
+    plain version's."""
     if slots.device.type == "cpu":
         return slot_transpose_plain(slots, mask, cap)
     require(slots.is_cuda, "slots must lie on a CUDA device")

@@ -191,8 +191,8 @@ def sample_uniform(
             ids=torch.full((B, k), INVALID_ID, dtype=torch.int32, device=seeds.device),
             mask=torch.zeros((B, k), dtype=torch.bool, device=seeds.device),
         )
-    ids = torch.empty((B, k), dtype=torch.int32, device=seeds.device)
-    mask = torch.empty((B, k), dtype=torch.bool, device=seeds.device)
+    ids = seeds.new_empty((B, k))  # new_empty: no dtype and device to parse (PERF.md)
+    mask = seeds.new_empty((B, k), dtype=torch.bool)
     rc = _lib().dg_sample_uniform(
         graph.indptr.data_ptr(), int(graph.indptr.dtype == torch.int64), graph.indices.data_ptr(),
         seeds.data_ptr(), keys.data_ptr(), ids.data_ptr(), mask.data_ptr(),

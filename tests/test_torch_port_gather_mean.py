@@ -296,3 +296,119 @@ _I32, _B = torch.int32, torch.bool
 def test_each_memory_safety_check_raises_value_error(call):
     with pytest.raises(ValueError):
         call()
+
+
+# ---- the transpose's order of work on the card --------------------------------
+
+_SCAN_ROWS = 1024  # csrc/gather.cu kScanThreads: the rows a scan block takes
+_LIGHT_MAX = 32  # csrc/gather.cu kLightMax
+
+
+def transpose_model(slots, mask, cap, range_rows, rng):
+    """The slot transpose as csrc/gather.cu builds it: count, one atomic per
+    valid slot, in an order the scheduler chooses (``rng``); the rows
+    scanned in ranges of ``range_rows`` (one block each, finishing in any
+    order), the range sums scanned after; fill, one atomicSub per valid
+    slot in another order, whose old value places the slot in its row's
+    list.  Returns offsets, entries, the heavy rows, the atomics made, and
+    the counts left after the fill (all 0)."""
+    S, k = slots.shape
+    n = S * k
+    rows = np.clip(slots.reshape(-1).astype(np.int64), 0, cap - 1)
+    valid = np.nonzero(mask.reshape(-1))[0]
+    counts = np.zeros(cap, np.int64)
+    atomics = 0
+    for e in rng.permutation(valid):
+        counts[rows[e]] += 1
+        atomics += 1
+    local = np.zeros(cap, np.int64)
+    ranges = (cap + range_rows - 1) // range_rows
+    sums = np.zeros(ranges, np.int64)
+    for g in rng.permutation(ranges):
+        lo, hi = g * range_rows, min(g * range_rows + range_rows, cap)
+        local[lo:hi] = np.cumsum(counts[lo:hi]) - counts[lo:hi]
+        sums[g] = counts[lo:hi].sum()
+    prefix = np.cumsum(sums) - sums  # the last block's scan of the range sums
+    offsets = np.zeros(cap + 1, np.int64)
+    offsets[:cap] = local + prefix[np.arange(cap) // range_rows]
+    offsets[cap] = sums.sum()
+    heavy = np.nonzero(np.diff(offsets) > _LIGHT_MAX)[0]
+    entries = np.full(n, -1, np.int64)
+    left = counts.copy()
+    for e in rng.permutation(valid):
+        r = rows[e]
+        left[r] -= 1  # atomicSub returns the old count: the slot takes place old - 1
+        atomics += 1
+        entries[offsets[r] + left[r]] = e
+    return offsets, entries, heavy, atomics, left
+
+
+def _hub_table(cap, S, k, seed, hub_every=7, p_valid=0.8):
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, cap, (S, k)).astype(np.int32)
+    slots.reshape(-1)[::hub_every] = 3  # row 3 a hub, named across many warps
+    slots[2, :] = 5  # row 5 named by a whole row's lanes in one warp
+    mask = rng.random((S, k)) < p_valid
+    return slots, mask
+
+
+@pytest.mark.parametrize(
+    "cap,range_rows,ranges",
+    [(700, _SCAN_ROWS, 1), (3000, _SCAN_ROWS, 3), (264 * 16, 16, 264)],
+    ids=["1_range", "3_ranges", "264_ranges"],
+)
+@pytest.mark.parametrize("table", ["hub", "all_masked"])
+def test_transpose_model_equals_plain_and_jax_grad(cap, range_rows, ranges, table):
+    """Ranges of rows over G scan blocks (G = 1, 3, 264), the range sums'
+    scan and one atomic per slot, in shuffled slot and block orders:
+    offsets equal slot_transpose_plain's, each list is the plain list as a
+    set, the counts return to 0, the hub row is a heavy row, and the
+    gradient summed over the model's lists equals JAX's scatter
+    gradient."""
+    S, k, F = 400, 10, 6
+    slots, mask = _hub_table(cap, S, k, seed=ranges)
+    if table == "all_masked":
+        mask[:] = False
+    assert (cap + range_rows - 1) // range_rows == ranges
+    ts, tm = torch.from_numpy(slots), torch.from_numpy(mask)
+    want = tgather.slot_transpose_plain(ts, tm, cap)
+    for order in range(2):
+        offsets, entries, heavy, atomics, left = transpose_model(slots, mask, cap, range_rows,
+                                                                 np.random.default_rng(order))
+        np.testing.assert_array_equal(offsets, want.offsets.numpy())
+        n = int(offsets[-1])
+        got_sets = [sorted(entries[offsets[r] : offsets[r + 1]]) for r in range(cap)]
+        want_lists = [want.entries.numpy()[offsets[r] : offsets[r + 1]].tolist() for r in range(cap)]
+        assert got_sets == want_lists
+        assert (left == 0).all() and (entries[n:] == -1).all()
+        np.testing.assert_array_equal(heavy, np.nonzero(np.diff(want.offsets.numpy()) > _LIGHT_MAX)[0])
+    if table == "all_masked":
+        assert n == 0 and atomics == 0 and heavy.size == 0
+        return
+    flat = slots.reshape(-1)[mask.reshape(-1)]
+    assert (flat == 3).sum() > _LIGHT_MAX and 3 in heavy  # the hub row is heavy
+    assert atomics == 2 * flat.shape[0]
+    rng = np.random.default_rng(F)
+    h = rng.standard_normal((cap, F)).astype(np.float32)
+    d_out = rng.standard_normal((S, F)).astype(np.float32)
+    ref = jax.grad(
+        lambda x: jnp.sum(jspmm.gather_mean(x, jnp.asarray(slots), jnp.asarray(mask)) * d_out)
+    )(jnp.asarray(h))
+    model_tr = tgather.SlotTranspose(torch.from_numpy(offsets.astype(np.int32)),
+                                     torch.from_numpy(entries.astype(np.int32)))
+    got = tgather.gather_mean_bwd_csr_plain(torch.from_numpy(d_out), tm, model_tr, cap)
+    np.testing.assert_allclose(np.asarray(ref), got.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_the_transpose_is_four_chained_kernels_and_no_memset():
+    """The build's source: four kernels chained by programmatic dependent
+    launch, each waiting for the one before, and no memset."""
+    src = (tgather.build.CSRC_DIR / "gather.cu").read_text()
+    body = src[src.index("int build_transpose(") : src.index("// d_h[r] = sum over row r's list")]
+    assert body.count("launch_chained(") == 4 and "cudaMemsetAsync" not in body
+    for kernel in ("transpose_zero_kernel", "transpose_count_kernel", "transpose_scan_kernel",
+                   "transpose_fill_kernel"):
+        assert kernel in body
+        head = src[src.index(kernel + "(") :]
+        assert head[: head.index("\n}\n")].count("wait_for_previous_grid();") == 1
+    assert f"constexpr int kScanThreads = {_SCAN_ROWS};" in src and f"constexpr int kLightMax = {_LIGHT_MAX};" in src

@@ -363,3 +363,147 @@ def test_sample_blocks_on_the_edge_graph_equal_jax(dedup_last):
         for name in jb._fields:
             np.testing.assert_array_equal(np.asarray(getattr(jb, name)), getattr(tb, name).numpy(),
                                           err_msg=name)
+
+
+# ---- the kernels' order of work: blocks of slots and the walk queue ---------
+
+_THREADS = 256  # csrc/sampling.cu kThreads
+_QUEUE_SLOTS = 131072  # csrc/sampling.cu kQueueSlots
+
+
+def _pass(x, d, key):
+    """One pass of the network for domain d >= 2 (feistel_pass)."""
+    x, d, key = (np.asarray(a, dtype=np.uint32) for a in (x, d, key))
+    bits = np.maximum(_bit_length(d - _ONE), np.uint32(2))
+    lo = (bits + _ONE) >> _ONE
+    return _feistel(x, lo, bits - lo, key)
+
+
+def k6_block_model(indptr, indices, seeds, keys, k, replace, rng, threads=_THREADS):
+    """ids and mask of K6 as its packed kernel orders the work: a block takes
+    ``threads`` consecutive flat slots, finds its first row by one division
+    and each thread its row and slot from the remainder; each slot of a row
+    longer than k runs the first pass where it is, and the slots still out
+    of range join the block's queue, warp by warp in an order the atomics
+    choose (``rng``), and walk on from there.  With replacement (which the
+    in-place kernel takes at every size) no slot walks, and the blocks are
+    that kernel's, a thread a slot.  Also returns how often each (b, j) was
+    visited and the queue lengths."""
+    B, N, E = seeds.shape[0], indptr.shape[0] - 1, indices.shape[0]
+    total = B * k
+    ids = np.full(total, INVALID, np.int32)
+    mask = np.zeros(total, bool)
+    visits = np.zeros((B, k), np.int64)
+    queues = []
+    for e0 in range(0, total, threads):
+        b0 = e0 // k
+        local = (e0 - b0 * k) + np.arange(threads)
+        row = local // k
+        b, j, e = b0 + row, local - row * k, e0 + np.arange(threads)
+        live = e < total
+        b, j, e = b[live], j[live], e[live]
+        assert (b * k + j == e).all()
+        np.add.at(visits, (b, j), 1)
+        seed = seeds[b]
+        valid = seed != INVALID
+        node = np.clip(np.where(valid, seed, 0), 0, N - 1).astype(np.int64)
+        start = np.where(valid, indptr[node].astype(np.int64), 0)
+        deg = np.where(valid, (indptr[node + 1].astype(np.int64) - indptr[node]), 0).astype(np.int64)
+        if replace:
+            take = deg > 0
+            sel = np.where(take, keys.reshape(-1)[e].astype(np.int64) % np.maximum(deg, 1), 0)
+        else:
+            take = j < np.minimum(deg, k)
+            sel = j.astype(np.int64)
+            first = take & (deg > k)
+            key = keys[b].astype(np.uint32)
+            y = np.zeros(e.shape[0], np.uint32)
+            y[first] = _pass(j[first], deg[first], key[first])
+            out = first & (y >= deg)
+            # the queue: whole warps in the atomics' order, lanes in order
+            warps = np.arange(0, e.shape[0], 32)
+            order = np.concatenate([np.nonzero(out[w : w + 32])[0] + w for w in rng.permutation(warps)]
+                                   + [np.zeros(0, np.int64)])
+            queues.append(order.shape[0])
+            for t in order:  # each queue entry walks on as one thread of the first warps would
+                yy, dd, kk = y[t : t + 1], deg[t : t + 1].astype(np.uint32), key[t : t + 1]
+                for _ in range(12):
+                    if yy[0] < dd[0]:
+                        break
+                    yy = _pass(yy, dd, kk)
+                y[t] = yy[0]
+            walked = y.astype(np.int64)
+            sel = np.where(first, np.where(walked < deg, walked, walked % np.maximum(deg, 1)), sel)
+        pos = np.clip(start + sel, 0, E - 1)
+        ids[e[take]] = indices[pos[take]]
+        mask[e[take]] = True
+    return ids.reshape(B, k), mask.reshape(B, k), visits, queues
+
+
+@pytest.mark.parametrize("k", [1, 5, 15, 16, 17, 40])
+@pytest.mark.parametrize("replace", [False, True])
+def test_block_model_covers_each_slot_once_and_equals_jax_and_plain(k, replace):
+    """Blocks of 256 slots over B rows of k slots: B is chosen so that the
+    last block is ragged and blocks start mid-row; every (b, j) is visited
+    once, and the block model, the element model, JAX's ``sample_uniform``
+    on JAX's keys and the port's plain version agree, under int32 and int64
+    indptr."""
+    src, dst, n, special = _edge_graph(k, seed=40 + k)
+    B = 700 + k  # B * k is not a multiple of 256 for any k here
+    assert (B * k) % _THREADS
+    seeds = _seeds(special, n, B, seed=k)
+    key = jax.random.key(60 + k)
+    shape = (B, k) if replace else (B,)
+    keys = np.asarray(jprng.random_keys(key, shape))
+    ref = jsampling.sample_uniform(jgraph.HostGraph.from_coo(src, dst, n).to_device(), jnp.asarray(seeds), k=k,
+                                   replace=replace, key=key)
+    ref_mask = np.broadcast_to(np.asarray(ref.mask), (B, k))
+    for indptr_dtype in (np.int32, np.int64):
+        hg = _host(src, dst, n, indptr_dtype)
+        ids, mask, visits, queues = k6_block_model(hg.indptr, hg.indices, seeds, keys, k, replace,
+                                                   np.random.default_rng(k))
+        assert (visits == 1).all()
+        np.testing.assert_array_equal(np.asarray(ref.ids), ids)
+        np.testing.assert_array_equal(ref_mask, mask)
+        np.testing.assert_array_equal((ids, mask), k6_model(hg.indptr, hg.indices, seeds, keys, k, replace))
+        out = tsampling.sample_uniform_plain(hg.to_device("cpu"), torch.from_numpy(seeds), k, replace,
+                                             torch.from_numpy(keys.astype(np.int64)))
+        np.testing.assert_array_equal(ids, out.ids.numpy())
+        np.testing.assert_array_equal(mask, out.mask.numpy())
+    if not replace and k < 40:
+        assert sum(queues) > 0  # some walks outlast the first pass: the queue is exercised
+
+
+def test_block_model_on_the_hub_row_in_every_queue_order():
+    """64 rows that are all the hub (3000 edges, k = 15): the walk on its
+    domain, through the queue in three orders of the atomics, gives the
+    element model's picks, k distinct positions a row."""
+    k = 15
+    src, dst, n, special = _edge_graph(k, seed=9)
+    hg = _host(src, dst, n, np.int32)
+    seeds = np.full(64, special[_HUB], np.int32)
+    keys = np.random.default_rng(10).integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
+    want = k6_model(hg.indptr, hg.indices, seeds, keys, k, False)
+    for order_seed in range(3):
+        ids, mask, visits, queues = k6_block_model(hg.indptr, hg.indices, seeds, keys, k, False,
+                                                   np.random.default_rng(order_seed))
+        np.testing.assert_array_equal((ids, mask), want)
+        assert (visits == 1).all() and mask.all() and sum(queues) > 0
+    pos, _ = tsampling.plain_positions(hg.to_device("cpu"), torch.from_numpy(seeds), k, False,
+                                       torch.from_numpy(keys.astype(np.int64)))
+    assert all(len(set(r)) == k for r in pos.numpy().tolist())
+
+
+def test_the_packed_kernel_takes_the_main_paths_last_hop_only():
+    """The SAGE bench request's hops have 512 x 5, 3,072 x 10 and 33,792 x
+    15 slots: only the last reaches the packed kernel's threshold, which
+    the source sets."""
+    from dist_gnn_tpu_torch.sampler import layer_capacities
+
+    src = (build.CSRC_DIR / "sampling.cu").read_text()
+    assert f"constexpr int64_t kQueueSlots = {_QUEUE_SLOTS};" in src
+    assert f"constexpr int kThreads = {_THREADS};" in src
+    hops = layer_capacities(512, (15, 10, 5))[:3]
+    slots = [b * kk for b, kk in zip(hops, (5, 10, 15))]
+    assert slots == [2560, 30720, 506880]
+    assert [s >= _QUEUE_SLOTS for s in slots] == [False, False, True]
