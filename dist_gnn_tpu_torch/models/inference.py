@@ -45,7 +45,7 @@ from dist_gnn_tpu_torch.models.gat import GAT
 from dist_gnn_tpu_torch.models.gcn import GCN
 from dist_gnn_tpu_torch.models.sage import SAGE
 from dist_gnn_tpu_torch.ops.gather import gather_rows
-from dist_gnn_tpu_torch.utils import native
+from dist_gnn_tpu_torch.utils import native, trace
 from dist_gnn_tpu_torch.utils.device import DeviceLike, resolve_device
 from dist_gnn_tpu_torch.utils.staging import PinnedRing
 
@@ -152,41 +152,58 @@ def full_graph_inference(
     product in h's dtype, the bias added in f32); GAT through
     ``_project`` and ``_combine``, whose f32 bias promotes every layer
     after the first to f32, as in JAX.  Any other model raises
-    ``NotImplementedError``."""
-    _check_model(model, "full_graph_inference")
-    dev = resolve_device(device)
-    N = hg.num_nodes
-    nnz = hg.num_edges
-    indptr = torch.from_numpy(np.asarray(hg.indptr, dtype=np.int64)).to(dev)
-    indices = torch.from_numpy(np.asarray(hg.indices, dtype=np.int32)).to(dev)
-    erows = _edge_rows(indptr, N, nnz)
-    deg = (indptr[1:] - indptr[:-1]).to(torch.float32)
+    ``NotImplementedError``.
 
-    h = features.to(dev)
-    if isinstance(model, GCN):
-        inv_sqrt = _inv_sqrt_deg(deg).to(h.dtype)
-    for l in range(len(model.dims)):
-        p = _layer_params(model, params, l, dev)
-        last = l == len(model.dims) - 1
-        if isinstance(model, GAT):
-            d_out, H = model.dims[l][1], model.num_heads
-            z, el, er = model._project(p, h, d_out)
-            agg = _gat_aggregate(z, el, er, indices, erows, edge_chunk, model.negative_slope, H, d_out)
-            h = model._combine(p, agg.to(z.dtype), d_out, last)
-            continue
-        if isinstance(model, GCN):
-            # each source row scaled once per layer, in h's dtype: the same
-            # products as scaling every gathered edge row
-            ssum = _edge_sum(h * inv_sqrt[:, None], indices, erows, edge_chunk)
-            agg = ssum.to(h.dtype) * inv_sqrt[:, None] + h / (deg.to(h.dtype) + 1)[:, None]
-            h = model._layer_forward(p, agg, agg.dtype)
-        else:
-            ssum = _edge_sum(h, indices, erows, edge_chunk)
-            h_mean = (ssum / torch.clamp(deg, min=1)[:, None]).to(h.dtype)
-            h = model._layer_forward(p, h, h_mean)
-        if not last:
-            h = torch.relu(h)
-    return h
+    The pass is the span ``infer_pass`` of ``utils/trace``; inside it
+    ``infer.upload`` (the graph and features to the device, the edge rows
+    and degrees) and, per layer (attr ``layer``), ``infer.edge_walk`` (the
+    chunk loop and the mean or norm it ends in) and ``infer.dense`` (the
+    layer's products and the ReLU; GAT's projection and its combine are
+    one each)."""
+    _check_model(model, "full_graph_inference")
+    with trace.span("infer_pass"):
+        dev = resolve_device(device)
+        N = hg.num_nodes
+        nnz = hg.num_edges
+        with trace.span("infer.upload"):
+            indptr = torch.from_numpy(np.asarray(hg.indptr, dtype=np.int64)).to(dev)
+            indices = torch.from_numpy(np.asarray(hg.indices, dtype=np.int32)).to(dev)
+            erows = _edge_rows(indptr, N, nnz)
+            deg = (indptr[1:] - indptr[:-1]).to(torch.float32)
+            h = features.to(dev)
+            if isinstance(model, GCN):
+                inv_sqrt = _inv_sqrt_deg(deg).to(h.dtype)
+        for l in range(len(model.dims)):
+            p = _layer_params(model, params, l, dev)
+            last = l == len(model.dims) - 1
+            if isinstance(model, GAT):
+                d_out, H = model.dims[l][1], model.num_heads
+                with trace.span("infer.dense", layer=l):
+                    z, el, er = model._project(p, h, d_out)
+                with trace.span("infer.edge_walk", layer=l):
+                    agg = _gat_aggregate(z, el, er, indices, erows, edge_chunk, model.negative_slope, H, d_out)
+                with trace.span("infer.dense", layer=l):
+                    h = model._combine(p, agg.to(z.dtype), d_out, last)
+                continue
+            if isinstance(model, GCN):
+                # each source row scaled once per layer, in h's dtype: the same
+                # products as scaling every gathered edge row
+                with trace.span("infer.edge_walk", layer=l):
+                    ssum = _edge_sum(h * inv_sqrt[:, None], indices, erows, edge_chunk)
+                    agg = ssum.to(h.dtype) * inv_sqrt[:, None] + h / (deg.to(h.dtype) + 1)[:, None]
+                with trace.span("infer.dense", layer=l):
+                    h = model._layer_forward(p, agg, agg.dtype)
+                    if not last:
+                        h = torch.relu(h)
+            else:
+                with trace.span("infer.edge_walk", layer=l):
+                    ssum = _edge_sum(h, indices, erows, edge_chunk)
+                    h_mean = (ssum / torch.clamp(deg, min=1)[:, None]).to(h.dtype)
+                with trace.span("infer.dense", layer=l):
+                    h = model._layer_forward(p, h, h_mean)
+                    if not last:
+                        h = torch.relu(h)
+        return h
 
 
 @torch.inference_mode()

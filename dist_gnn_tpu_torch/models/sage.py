@@ -29,6 +29,7 @@ from torch import nn
 from dist_gnn_tpu_torch.ops import prng
 from dist_gnn_tpu_torch.ops.gather import gather_mean
 from dist_gnn_tpu_torch.sampler import Block
+from dist_gnn_tpu_torch.utils import trace
 from dist_gnn_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -53,8 +54,9 @@ def _key_source(rng) -> Callable[[int, torch.device], torch.Tensor]:
 
 def _dropout(h: torch.Tensor, row_keys: torch.Tensor, rate: float) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate, scale by 1/(1 - rate)."""
-    keep = prng.dropout_keep(row_keys, h.shape, 1.0 - rate)
-    return torch.where(keep, h / (1.0 - rate), 0)
+    with trace.span("forward.dropout"):
+        keep = prng.dropout_keep(row_keys, h.shape, 1.0 - rate)
+        return torch.where(keep, h / (1.0 - rate), 0)
 
 
 def contiguous_mean(h: torch.Tensor, block: Block) -> torch.Tensor:

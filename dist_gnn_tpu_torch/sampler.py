@@ -29,6 +29,7 @@ import torch
 from dist_gnn_tpu_torch.graph import INVALID_ID, Graph
 from dist_gnn_tpu_torch.ops.relabel import unique_and_relabel
 from dist_gnn_tpu_torch.ops.sampling import sample_neighbors
+from dist_gnn_tpu_torch.utils import trace
 
 
 class Block(NamedTuple):
@@ -108,6 +109,18 @@ def _no_dedup_block(seeds, seed_mask, nb) -> Block:
     )
 
 
+def _relabel_block(seeds, seed_mask, nb, cap: Optional[int]):
+    """``(block, frontier overflow or None)`` of one deduplicated hop: the
+    relabel, then the cut to ``cap`` slots when the frontier is longer."""
+    rl = unique_and_relabel(seeds, nb.ids, nb.mask)
+    if cap is None or cap >= rl.frontier.shape[0]:
+        return Block(seeds, seed_mask, rl.frontier, rl.frontier_mask, rl.num_frontier, rl.neigh_slots, nb.mask), None
+    if cap < seeds.shape[0]:
+        raise ValueError(f"frontier cap {cap} must cover the {seeds.shape[0]} seeds")
+    frontier, frontier_mask, num_frontier, slots, keep, fovf = _truncate_frontier(rl, cap)
+    return Block(seeds, seed_mask, frontier, frontier_mask, num_frontier, slots, nb.mask & keep), fovf
+
+
 def sample_blocks(
     graph: Graph,
     seeds: torch.Tensor,
@@ -153,50 +166,35 @@ def blocks_from_hops(
     """The layer loop of :func:`sample_blocks` over any per-hop sampler:
     ``sample_hop(i, seeds, seed_mask, k) -> (SampledNeighbors, overflow)``
     samples hop ``i`` (the distributed trainer's owner-side sampler is
-    one).  Returns ``(blocks, stats)`` as :func:`sample_blocks` does."""
+    one).  Returns ``(blocks, stats)`` as :func:`sample_blocks` does.
+
+    Each hop is two spans of ``utils/trace``, ``sample.draw`` and
+    ``sample.relabel`` (attr ``hop``), and adds its frontier's valid rows
+    (the 0-d ``num_frontier``) and allotted rows to the counters
+    ``sample.frontier_rows`` and ``sample.frontier_alloc``."""
     dev = seeds.device
     blocks = []
     samp_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     front_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     for i, k in enumerate(reversed(list(fan_out))):
-        nb, ovf = sample_hop(i, seeds, seed_mask, k)
-        samp_ovf = samp_ovf + ovf
-        if not dedup_last and i == len(fan_out) - 1:
-            blocks.append(_no_dedup_block(seeds, seed_mask, nb))
+        with trace.span("sample.draw", hop=i):
+            nb, ovf = sample_hop(i, seeds, seed_mask, k)
+            samp_ovf = samp_ovf + ovf
+        last = not dedup_last and i == len(fan_out) - 1
+        with trace.span("sample.relabel", hop=i):
+            if last:
+                block = _no_dedup_block(seeds, seed_mask, nb)
+            else:
+                block, fovf = _relabel_block(seeds, seed_mask, nb, None if frontier_caps is None else frontier_caps[i])
+                if fovf is not None:
+                    front_ovf = front_ovf + fovf.to(torch.int32)
+        trace.count("sample.frontier_rows", block.num_frontier)
+        trace.count("sample.frontier_alloc", block.frontier.shape[0])
+        blocks.append(block)
+        if last:
             break
-        rl = unique_and_relabel(seeds, nb.ids, nb.mask)
-        neigh_mask = nb.mask
-        if frontier_caps is not None and frontier_caps[i] < rl.frontier.shape[0]:
-            budget = frontier_caps[i]
-            if budget < seeds.shape[0]:
-                raise ValueError(
-                    f"frontier cap {budget} must cover the {seeds.shape[0]} seeds"
-                )
-            frontier, frontier_mask, num_frontier, slots, keep, fovf = (
-                _truncate_frontier(rl, budget)
-            )
-            neigh_mask = neigh_mask & keep
-            front_ovf = front_ovf + fovf.to(torch.int32)
-        else:
-            frontier, frontier_mask, num_frontier, slots = (
-                rl.frontier,
-                rl.frontier_mask,
-                rl.num_frontier,
-                rl.neigh_slots,
-            )
-        blocks.append(
-            Block(
-                seeds=seeds,
-                seed_mask=seed_mask,
-                frontier=frontier,
-                frontier_mask=frontier_mask,
-                num_frontier=num_frontier,
-                neigh_slots=slots,
-                neigh_mask=neigh_mask,
-            )
-        )
-        seeds = frontier
-        seed_mask = frontier_mask
+        seeds = block.frontier
+        seed_mask = block.frontier_mask
     return tuple(blocks), {
         "sampler_overflow": samp_ovf,
         "frontier_overflow": front_ovf,

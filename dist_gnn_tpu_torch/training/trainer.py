@@ -34,6 +34,7 @@ from torch.func import functional_call
 from dist_gnn_tpu_torch.graph import Graph
 from dist_gnn_tpu_torch.ops.gather import gather_rows
 from dist_gnn_tpu_torch.sampler import sample_blocks
+from dist_gnn_tpu_torch.utils import trace
 from dist_gnn_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -111,13 +112,15 @@ class Trainer:
         Invalid frontier slots gather row 0, a finite real row that every
         consumer masks (the JAX trainer's zero_invalid_rows debug flag is
         not carried over)."""
-        blocks, stats = sample_blocks(
-            graph, seeds, seed_mask, tuple(self.fan_out), self.replace, hop_key,
-            frontier_caps=self.frontier_caps,
-            dedup_last=self.dedup_last,
-        )
-        safe = torch.where(blocks[-1].frontier_mask, blocks[-1].frontier, 0)
-        return blocks, stats, self._gather_rows(features, safe)
+        with trace.span("sample"):
+            blocks, stats = sample_blocks(
+                graph, seeds, seed_mask, tuple(self.fan_out), self.replace, hop_key,
+                frontier_caps=self.frontier_caps,
+                dedup_last=self.dedup_last,
+            )
+        with trace.span("gather"):
+            safe = torch.where(blocks[-1].frontier_mask, blocks[-1].frontier, 0)
+            return blocks, stats, self._gather_rows(features, safe)
 
     def train_step(
         self,
@@ -131,19 +134,27 @@ class Trainer:
         """One training step: sample, gather (K1), forward in train mode,
         masked NLL, backward, Adam.  Updates the model in place and returns
         ``{loss, acc, sampler_overflow, frontier_overflow}`` as 0-d
-        tensors on the device."""
-        self._check_device(graph.indices, features, labels, seeds, seed_mask)
-        hop_key, drop_key = (key, key) if isinstance(key, torch.Generator) else key
-        with torch.no_grad():
-            blocks, stats, feats = self._sample_and_gather(graph, features, seeds, seed_mask, hop_key)
-            batch_labels = torch.where(seed_mask, labels[torch.where(seed_mask, seeds, 0).long()], 0)
-        loss, acc = masked_nll_loss(
-            self.model, self.dedup_last, blocks, feats, batch_labels, seed_mask, drop_key
-        )
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        return {"loss": loss.detach(), "acc": acc, **stats}
+        tensors on the device.  Its phases are spans of ``utils/trace``
+        (``sample``, ``gather``, ``forward``, ``backward``, ``optimizer``
+        inside ``train_step``); ``zero_grad`` sets the gradients to None
+        (no launch) inside ``backward``, which it must precede."""
+        with trace.span("train_step"):
+            self._check_device(graph.indices, features, labels, seeds, seed_mask)
+            hop_key, drop_key = (key, key) if isinstance(key, torch.Generator) else key
+            with torch.no_grad():
+                blocks, stats, feats = self._sample_and_gather(graph, features, seeds, seed_mask, hop_key)
+                with trace.span("gather"):
+                    batch_labels = torch.where(seed_mask, labels[torch.where(seed_mask, seeds, 0).long()], 0)
+            with trace.span("forward"):
+                loss, acc = masked_nll_loss(
+                    self.model, self.dedup_last, blocks, feats, batch_labels, seed_mask, drop_key
+                )
+            with trace.span("backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with trace.span("optimizer"):
+                self.optimizer.step()
+            return {"loss": loss.detach(), "acc": acc, **stats}
 
     def train_step_multi(
         self,

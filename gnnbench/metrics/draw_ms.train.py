@@ -1,0 +1,10 @@
+"""Device ms a training step launched inside every hop's neighbour draw
+(`sample.draw`: K6, K7 or K8): the kernels, copies and memsets whose
+launch lies inside that span of the program's own tracing, on the device
+trace's clock (``gnnbench/spans.py``)."""
+
+from gnnbench import spans
+
+
+def read(record):
+    return spans.device_ms(record, "train", "sample.draw")

@@ -33,7 +33,7 @@ def test_walk_covers_the_package():
                    "models/inference.py", "training/trainer.py", "scripts/bench_gather2.py",
                    "utils/native.py", "utils/staging.py", "ops/hashtable.py", "feature_server.py",
                    "ops/heat.py", "cache/cost_model.py", "cache/policy.py", "cache/builder.py",
-                   "host_tier.py", "training/pipeline.py", "cache/autotune.py", "utils/metrics.py",
+                   "host_tier.py", "training/pipeline.py", "cache/autotune.py", "utils/metrics.py", "utils/trace.py",
                    "training/checkpoint.py", "ops/sampling.py", "graph.py", "ops/quantize.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/feature_store.py",
                    "parallel/graph_dist.py", "parallel/trainer_dist.py", "parallel/inference_dist.py",

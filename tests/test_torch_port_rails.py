@@ -25,7 +25,7 @@ from dist_gnn_tpu_torch.models import SAGE as TSAGE
 from dist_gnn_tpu_torch.sampler import layer_capacities
 from dist_gnn_tpu_torch.training import Trainer, make_optimizer
 from dist_gnn_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
-from dist_gnn_tpu_torch.utils.metrics import MetricsLogger, PhaseTimer
+from dist_gnn_tpu_torch.utils.metrics import MetricsLogger
 
 torch.set_num_threads(1)
 
@@ -94,21 +94,9 @@ def test_tuned_caps_train_without_frontier_overflow(graph):
 # ---- metrics ---------------------------------------------------------------------
 
 
-def test_phase_timer_and_logger(tmp_path, capsys):
-    """As ``tests/test_checkpoint_metrics.py`` requires of the JAX package's,
-    plus: stdout means ``sys.stdout``, and with no sample past the warm-up
-    ``mean_ms`` reports the last one."""
-    t = PhaseTimer(warmup=1)
-    for _ in range(3):
-        t.start("sampling")
-        t.stop("sampling", fence=torch.ones(16).sum())
-    rep = t.report()
-    assert "sampling" in rep and rep["sampling"] >= 0
-    assert t.mean_ms("sampling") == pytest.approx(1000 * sum(t.samples["sampling"][1:]) / 2)
-    t2 = PhaseTimer(warmup=3)
-    t2.samples["build"] += [5.0, 0.002]  # a first call's build, then a real sample
-    assert t2.mean_ms("build") == pytest.approx(2.0)
-
+def test_metrics_logger(tmp_path, capsys):
+    """As ``tests/test_checkpoint_metrics.py`` requires of the JAX package's
+    logger, plus: stdout means ``sys.stdout``."""
     log = MetricsLogger(path=str(tmp_path / "m.jsonl"), stdout=False)
     log.log("epoch", epoch=1, loss=0.5)
     log.close()
