@@ -51,9 +51,18 @@ weights from a seed.  Phases, one JSON line each:
    seeds; one batch's logits are held against the plain path on the same
    blocks, and the launch counters show K6 three times, K1 once and K3
    three times per request;
-6. full-graph inference: ``full_graph_inference`` over all 500k nodes,
-   timed, and held against the same function on the CPU on a 20k-node
-   graph;
+6. K3-csr (``gather_mean_csr``, the full-graph walk) held against its
+   plain version and run twice on the same inputs (the same bits) on the
+   500k-node graph (F 100 and 256, bf16 and f32, mean and sum) and on the
+   benchmark's ogbn-products-sized graph (``gnnbench/graphgen``: 2.45M
+   nodes, 123.7M edges; F 100 and 256, bf16), its heavy-row plan against
+   the degrees; ms, device ms, bound, plain and ``library_ms`` (the walk it
+   replaced: K1 over edge chunks, the f32 cast and ``index_add_``) summed
+   over a SAGE pass's three layers at the benchmark's shapes;
+   full-graph inference: ``full_graph_inference`` over all 500k nodes,
+   timed, its launches counted (SAGE and GCN: the plan once and K3-csr once
+   a layer, nothing else; GAT: K1), and held against the same function on
+   the CPU on a 20k-node graph;
 7. kernels: the slot transpose and the K3 backward at SAGE layers 1 and
    2 and at a power-law slot table of 70,000 x 16 slots, above the 2^20
    keys of one bitmap window, with hub rows (f32 bitwise equal over two
@@ -295,6 +304,12 @@ VAL_ACC_MIN = 1.0 - 0.01  # the pinned target less its margin (bench.py:52-53)
 # relative) and the difference compounds through three layers.
 K3_BF16_TOL = 1e-2
 K3_F32_TOL = 1e-5
+# K3-csr in f32 against its plain version: the same sums in another order
+# (the plain version's index_add_ adds atomically on the card) over rows of
+# thousands of in-edges, so the sum epilogue's largest rows part by tens of
+# f32 ulps of the largest output (2.95e-5 at 500k nodes, F 100); a lost or
+# doubled edge moves its row by a whole term, far above this.
+K3CSR_F32_TOL = 1e-4
 LOGITS_BF16_TOL = 5e-2
 # K4 in bf16, as a share of the plain version's largest magnitude: both
 # round alpha and agg to bf16, but from f32 sums taken in another order, so
@@ -450,7 +465,8 @@ def kernel_counters() -> dict:
             "sample_biased_alias": sampling.sample_biased_alias,
             "gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
             "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose,
-            "gather_mean_bwd": gather.gather_mean_bwd, "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
+            "gather_mean_bwd": gather.gather_mean_bwd, "gather_mean_csr": gather.gather_mean_csr,
+            "csr_plan": gather.csr_plan, "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
 
 
 def world2_gloo(mesh, caps, num_nodes) -> dict:
@@ -1852,7 +1868,53 @@ def main() -> int:
     k1["launches"] = launches["gather_rows"]
     k6["launches"] = launches["sample_uniform"]
 
-    # ---- 6. full-graph inference -----------------------------------------
+    # ---- 6. K3-csr, the full-graph walk -------------------------------------
+    # on the 500k graph (untimed, every width, dtype and epilogue), then at
+    # the benchmark cell's shapes, timed as a SAGE pass runs it: layer 0 on
+    # the bf16 features (F 100), layers 1 and 2 on a bf16 [N, 256]
+    from dist_gnn_tpu_torch.scripts import bench_gather_mean_csr as bench_csr
+    from gnnbench import graphgen
+
+    csr_gen = torch.Generator(device=cuda).manual_seed(11)
+    csr_small = []
+    csr_ip, csr_ix = graph.indptr.to(torch.int64), graph.indices
+    for h in (features, torch.randn((hg.num_nodes, 256), generator=csr_gen, device=cuda)):
+        for dt in (torch.bfloat16, torch.float32):
+            for mean in (True, False):
+                r = bench_csr.measure(h.to(dt), csr_ip, csr_ix, mean, timed=False)
+                tol = K3_BF16_TOL if dt == torch.bfloat16 else K3CSR_F32_TOL
+                check(r["rel_err"] <= tol and r["bit_identical"], f"K3-csr at 500k nodes: {r}")
+                csr_small.append({k: r[k] for k in ("F", "dtype", "mean", "rel_err", "bit_identical")})
+    csr_plan_np = np.diff(arrays["indptr"])
+    plan = gather.csr_plan(csr_ip, csr_ix.numel())
+    check(sorted(plan.rows[: int(plan.n_heavy)].tolist()) == np.nonzero(csr_plan_np > gather.CSR_LIGHT_MAX)[0].tolist()
+          and int(plan.heavy_edges) == int(csr_plan_np[csr_plan_np > gather.CSR_LIGHT_MAX].sum()),
+          "K3-csr's plan differs from the degrees")
+    del plan, csr_ip
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "gnnbench", "configs",
+                           "sage-products.json")) as f:
+        cell_cfg = json.load(f)
+    cell = graphgen.make_graph(cell_cfg, cell_cfg["graph"]["graph_seed"], cuda)
+    cell_ip, cell_ix = cell["indptr"].to(torch.int64), cell["indices"]
+    csr_layers = [bench_csr.measure(cell["features"], cell_ip, cell_ix, True)]
+    hidden = torch.randn((cell_ip.numel() - 1, 256), generator=csr_gen, device=cuda).to(torch.bfloat16)
+    csr_layers.append(bench_csr.measure(hidden, cell_ip, cell_ix, True))
+    csr_layers.append(bench_csr.measure(hidden, cell_ip, cell_ix, False, timed=False))
+    for r in csr_layers:
+        check(r["rel_err"] <= K3_BF16_TOL and r["bit_identical"], f"K3-csr at the cell's shapes: {r}")
+    del cell, cell_ip, cell_ix, hidden
+    torch.cuda.empty_cache()
+    pass_layers = [csr_layers[0], csr_layers[1], csr_layers[1]]  # a SAGE pass: F 100, then 256 twice
+    k3c = {"name": "gather_mean_csr", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/gather.cu",
+           "replaces": "none: XLA band matmuls in dist_gnn_tpu/models/inference.py; the port's K1 + index_add_ walk",
+           "max_abs_err": max(r["rel_err"] for r in csr_layers), "bound_by": "bytes",
+           **{key: sum(r[key] for r in pass_layers) for key in ("ms", "device_ms", "bound_ms", "plain_ms",
+                                                                "library_ms")}}
+    emit({"phase": "kernel", "kernel": "K3-csr gather_mean_csr", "times_are": "sums over a SAGE pass's three "
+          "layers at the benchmark's shapes (2.45M nodes, 123.7M edges; F 100, 256, 256, bf16)",
+          "light_max": gather.CSR_LIGHT_MAX, "cell_layers": csr_layers, "small_graph": csr_small, **k3c, **card})
+
+    # ---- 6b. full-graph inference ----------------------------------------
     small, _ = make_synthetic_dataset(
         num_nodes=20_000, avg_degree=30, feature_dim=100, num_classes=47, train_frac=0.2, seed=1,
     )
@@ -1861,8 +1923,9 @@ def main() -> int:
 
     def full_graph_phase(name, m):
         """``full_graph_inference`` of ``m`` over the 500k-node graph, timed
-        warm with its launches counted (K1 and nothing else), then held
-        against the same function on the CPU on the 20k-node graph."""
+        warm with its launches counted (GAT: K1 and nothing else; SAGE and
+        GCN: the plan once and K3-csr once a layer), then held against the
+        same function on the CPU on the 20k-node graph."""
         full_graph_inference(m, None, hg, features, device=cuda)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
@@ -1873,8 +1936,12 @@ def main() -> int:
         full_launches = read_counts()
         check(out_full.shape == (hg.num_nodes, meta["num_classes"]), f"{name}: output shape")
         check(bool(torch.isfinite(out_full.float()).all()), f"{name}: output must be finite")
-        check(full_launches["gather_rows"] > 0 and sum(full_launches.values()) == full_launches["gather_rows"],
-              f"{name}: launches {full_launches}, expected K1 and no other kernel")
+        if isinstance(m, GAT):
+            ok = full_launches["gather_rows"] > 0 and sum(full_launches.values()) == full_launches["gather_rows"]
+        else:  # the plan once, K3-csr once a layer, nothing else
+            want = {"csr_plan": 1, "gather_mean_csr": len(FAN_OUT)}
+            ok = {k: v for k, v in full_launches.items() if v} == want
+        check(ok, f"{name}: launches {full_launches}")
         del out_full
         full_kernels, full_prof_ms = profile_device(
             lambda: full_graph_inference(m, None, hg, features, device=cuda), iters=1)
@@ -1891,8 +1958,9 @@ def main() -> int:
               "top_kernels_ms": [[k[:80], ms, n] for k, (ms, n) in full_top],
               "check_nodes": shg.num_nodes,
               "check_rel_err_vs_cpu": small_err, **card})
+        return full_launches
 
-    full_graph_phase("full_graph_inference", model)
+    k3c["launches"] = full_graph_phase("full_graph_inference", model)["gather_mean_csr"]
 
     # ---- 7. K3 backward, K4 and K5 against their plain versions ---------
     def call_device_ms(fn, names, iters=10):
@@ -3152,7 +3220,7 @@ def main() -> int:
           "epochs": CONV_EPOCHS, "epoch_steps": n_dc, "train_s": dconv_s, "epochs_overflow": int(dc_ovf),
           "eval_s": d_eval_s, "val_acc_sampled": d_val, "val_acc_min": VAL_ACC_MIN, **card})
     for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k3, "gather_mean"),
-                       (st_k, "slot_transpose"), (k3b, "gather_mean_bwd")):
+                       (st_k, "slot_transpose"), (k3b, "gather_mean_bwd"), (k3c, "gather_mean_csr")):
         kern["dist_launches_per_step"] = d_launch[name] / N_STEPS
 
     # dist_training_sage_sharded: owner-side sampling on the sharded graph
@@ -3422,7 +3490,8 @@ def main() -> int:
           "final_loss": float(mets_dh[-1]["loss"]), "eval_s": dh_eval_s, "val_acc_sampled": dh_val,
           "val_acc_min": VAL_ACC_MIN, "seconds": time.perf_counter() - t_dh, **card})
     for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k2, "gather_rows_dma"), (k3, "gather_mean"),
-                       (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose")):
+                       (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose"),
+                       (k3c, "gather_mean_csr")):
         kern["dist_host_launches_per_batch"] = dh_launch[name] / N_TIMED
 
     # dist_host_full: the structure host-resident too, the 20% plan's
@@ -3658,7 +3727,7 @@ def main() -> int:
           "two_tier_phases_s": time.perf_counter() - t_tt, **card})
     for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k2, "gather_rows_dma"), (k3, "gather_mean"),
                        (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose"),
-                       (k7, "sample_biased"), (k8, "sample_biased_alias")):
+                       (k7, "sample_biased"), (k8, "sample_biased_alias"), (k3c, "gather_mean_csr")):
         kern["two_tier_launches_per_step"] = tt_launch[name]
 
     # ---- 19. the apps, the dataset I/O and the scale smoke -------------------
@@ -3841,7 +3910,7 @@ def main() -> int:
           "min_kept_share": profile_device.min_kept_share, "launches_seen": profile_device.launches_seen,
           **card})
     emit({"kernels": [{**{k: kern[k] for k in keys}, **{k: kern[k] for k in ("launches_count", "hops", "all_hub") if k in kern}}
-                      for kern in (k6, k1, k2, k3, k3b, k4, k5, st_k, k7, k8)]})
+                      for kern in (k6, k1, k2, k3, k3b, k3c, k4, k5, st_k, k7, k8)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
 // K1 (feature-row gather), K2 (the same gather through double-buffered
-// row copies) and K3 (masked neighbour mean, forward and backward) for
-// Hopper, sm_90a.
+// row copies), K3 (masked neighbour mean, forward and backward) and K3-csr
+// (the full-graph neighbour mean or sum over a CSC) for Hopper, sm_90a.
 //
 // Plain C interface, loaded with ctypes by dist_gnn_tpu_torch/ops/gather.py
 // (built by dist_gnn_tpu_torch/kernels/build.py).  Each entry point launches
@@ -71,6 +71,34 @@
 //   the keys in shared memory, one window of 2^20 keys at a time, and
 //   splits it over 32 warps, so no warp walks a hub's list alone.  The sum
 //   is the same bits on every run, at any slot-table size.
+//
+// K3-csr dg_gather_mean_csr: out[r] = the sum of h[indices[e]] over row r's
+//   contiguous CSC in-edges e in [indptr[r], indptr[r + 1]), divided by
+//   max(deg, 1) for the mean (SAGE) or not (GCN's sum), rows with no
+//   in-edge 0: the full-graph walk of a SAGE or GCN layer.  Replaces no
+//   Pallas kernel: the JAX package walks the full graph with XLA band
+//   matmuls shaped to the TPU; the port's walk was K1 over edge chunks, an
+//   f32 cast and index_add_ atomics into an [N, F] f32 buffer, which moved
+//   about 6 times the bytes below.  Bound by bytes: every edge's source row
+//   read once, indices and indptr read once, every output row written once
+//   (about 155 GB, 46 ms, a pass of the benchmark's 3-layer SAGE at
+//   ogbn-products' sizes; less where hub rows hit in L2).  Design: no
+//   message buffer, no f32 accumulator in memory, no atomics on the
+//   features, no cast pass: each row is summed in f32 registers in CSC
+//   order and written once in h's dtype, the mean's division before the
+//   one rounding, so two calls give the same bits.  Rows of up to
+//   kCsrLightMax in-edges take one warp each: the lanes load 32 ids at a
+//   time and pass them by shuffle, and each lane keeps kCsrBatch row loads
+//   in flight, its vector the widest (up to 16 bytes) that F and the
+//   addresses allow (at 100 bf16 columns 8 bytes, so 25 of 32 lanes load;
+//   halves of a warp on two edges would leave as many load slots idle, and
+//   such a row spans seven 32-byte sectors for its 200 bytes, PERF.md).
+//   The rows above it (a power-law graph's hubs, up to
+//   ~17,500 in-edges) take one block of kCsrHeavyWarps warps each, from a
+//   list that dg_csr_plan builds on the card from indptr (no read-back):
+//   the warps sum contiguous runs of the row, added in shared memory in
+//   warp order, so no warp holds a hub alone at the end of the layer.
+//   Two launches a layer; the plan, one launch and a zero fill, once a pass.
 //
 // K2 dg_gather_rows_dma: the same out[i] = table[idx[i]] as K1, by
 //   double-buffered row copies through shared memory.  Replaces
@@ -852,6 +880,178 @@ int launch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64_t
   return (int)cudaGetLastError();
 }
 
+// ---- K3-csr: the full-graph row walk over a CSC --------------------------
+
+constexpr int kCsrLightMax = 256;     // in-edges up to this many: one warp a row
+constexpr int kCsrBatch = 8;          // row loads a lane keeps in flight
+constexpr int kCsrHeavyThreads = 512;  // a heavy row's block: 16 warps
+constexpr int kCsrHeavyWarps = kCsrHeavyThreads / 32;
+
+// Row r's in-edges [e0, e1), clamped into the nnz edges that exist, so a bad
+// indptr can never read outside indices.
+__device__ __forceinline__ void csr_span(const int64_t* __restrict__ indptr, int64_t r, int64_t nnz,
+                                         int64_t& e0, int64_t& e1) {
+  const int64_t b = indptr[r], e = indptr[r + 1];
+  e1 = e < 0 ? 0 : (e > nnz ? nnz : e);
+  e0 = b < 0 ? 0 : (b > e1 ? e1 : b);
+}
+
+// The plan: the rows with more than kCsrLightMax in-edges, appended to
+// heavy_rows in no fixed order, counts[0] of them holding counts[1] edges
+// (counts zeroed by the caller).
+__global__ void __launch_bounds__(kThreads)
+csr_plan_kernel(const int64_t* __restrict__ indptr, int64_t n_rows, int64_t nnz, int32_t* __restrict__ heavy_rows,
+                unsigned long long* __restrict__ counts) {
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n_rows;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    int64_t e0, e1;
+    csr_span(indptr, r, nnz, e0, e1);
+    if (e1 - e0 > kCsrLightMax) {
+      heavy_rows[atomicAdd(counts, 1ull)] = (int32_t)r;
+      atomicAdd(counts + 1, (unsigned long long)(e1 - e0));
+    }
+  }
+}
+
+// One warp adds into acc, vector v0 + lane of each row, h's rows named by
+// indices[e0, e1) in order: the lanes load up to 32 ids at once and pass
+// them by shuffle, and each lane loads its vector of kCsrBatch rows before
+// it adds any.
+template <typename T, int VEC>
+__device__ __forceinline__ void csr_warp_sum(const T* __restrict__ h, const int32_t* __restrict__ indices,
+                                             int64_t n_src, int64_t e0, int64_t e1, int v, int nvec,
+                                             float (&acc)[VEC / sizeof(T)]) {
+  using V = typename Raw<VEC>::T;
+  constexpr int E = VEC / (int)sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const bool live = v < nvec;  // every lane takes part in the shuffles
+  for (int64_t j0 = e0; j0 < e1; j0 += 32) {
+    const int m = (int)min64(32, e1 - j0);
+    const int my = lane < m ? (int)clamp_row(indices[j0 + lane], n_src) : 0;
+    for (int t0 = 0; t0 < m; t0 += kCsrBatch) {
+      V raw[kCsrBatch];
+#pragma unroll
+      for (int u = 0; u < kCsrBatch; ++u) {
+        if (t0 + u < m) {
+          const int64_t row = __shfl_sync(kFull, my, t0 + u);
+          if (live) raw[u] = reinterpret_cast<const V*>(h + row * nvec * E)[v];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCsrBatch; ++u) {
+        if (t0 + u < m && live) {
+          const T* x = reinterpret_cast<const T*>(&raw[u]);
+#pragma unroll
+          for (int q = 0; q < E; ++q) acc[q] += to_float(x[q]);
+        }
+      }
+    }
+  }
+}
+
+// Rows with at most kCsrLightMax in-edges: one warp a row, each lane one
+// vector of the row (32 vectors a pass over the edges).  The sum is divided
+// by max(deg, 1) for the mean, then rounded once.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gather_mean_csr_kernel(const T* __restrict__ h, const int64_t* __restrict__ indptr,
+                       const int32_t* __restrict__ indices, T* __restrict__ out, int64_t n_src, int64_t n_rows,
+                       int64_t nnz, int F, int mean) {
+  using V = typename Raw<VEC>::T;
+  constexpr int E = VEC / (int)sizeof(T);
+  const int nvec = F / E;
+  const int lane = threadIdx.x & 31;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < n_rows; r += n_warps) {
+    int64_t e0, e1;
+    csr_span(indptr, r, nnz, e0, e1);
+    if (e1 - e0 > kCsrLightMax) continue;  // the heavy kernel's row
+    const float denom = mean && e1 - e0 > 1 ? (float)(e1 - e0) : 1.f;
+    V* orow = reinterpret_cast<V*>(out + r * F);
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      float acc[E];
+#pragma unroll
+      for (int q = 0; q < E; ++q) acc[q] = 0.f;
+      csr_warp_sum<T, VEC>(h, indices, n_src, e0, e1, v0 + lane, nvec, acc);
+      if (v0 + lane < nvec) {
+        V res;
+        T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+        for (int q = 0; q < E; ++q) o[q] = from_float<T>(acc[q] / denom);
+        orow[v0 + lane] = res;
+      }
+    }
+  }
+}
+
+// Rows with more in-edges (the plan's heavy rows): one block a row,
+// persistent blocks walking the list.  Warp w sums the w-th of
+// kCsrHeavyWarps contiguous runs of the row's edges; the runs' sums are
+// added in shared memory in warp order and the row written once, so the
+// result does not depend on the schedule.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kCsrHeavyThreads)
+gather_mean_csr_heavy_kernel(const T* __restrict__ h, const int64_t* __restrict__ indptr,
+                             const int32_t* __restrict__ indices, const int32_t* __restrict__ heavy_rows,
+                             const int64_t* __restrict__ counts, T* __restrict__ out, int64_t n_src, int64_t nnz,
+                             int F, int mean) {
+  constexpr int E = VEC / (int)sizeof(T);
+  constexpr int kChunk = 32 * E;  // elements of one pass over the edges
+  __shared__ float part[kCsrHeavyWarps][kChunk];
+  const int nvec = F / E;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t rows = counts[0];
+  for (int64_t i = blockIdx.x; i < rows; i += gridDim.x) {
+    const int64_t r = heavy_rows[i];
+    int64_t e0, e1;
+    csr_span(indptr, r, nnz, e0, e1);
+    const int64_t run = (e1 - e0 + kCsrHeavyWarps - 1) / kCsrHeavyWarps;
+    const int64_t lo = min64(e0 + w * run, e1), hi = min64(lo + run, e1);
+    const float denom = mean && e1 - e0 > 1 ? (float)(e1 - e0) : 1.f;
+    T* orow = out + r * F;
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      float acc[E];
+#pragma unroll
+      for (int q = 0; q < E; ++q) acc[q] = 0.f;
+      csr_warp_sum<T, VEC>(h, indices, n_src, lo, hi, v0 + lane, nvec, acc);
+#pragma unroll
+      for (int q = 0; q < E; ++q) part[w][lane * E + q] = acc[q];
+      __syncthreads();
+      const int n_el = (nvec - v0 < 32 ? nvec - v0 : 32) * E;
+      for (int x = threadIdx.x; x < n_el; x += kCsrHeavyThreads) {
+        float s = 0.f;
+#pragma unroll
+        for (int u = 0; u < kCsrHeavyWarps; ++u) s += part[u][x];
+        orow[v0 * E + x] = from_float<T>(s / denom);
+      }
+      __syncthreads();  // part is free
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_gather_mean_csr(const void* h, const int64_t* indptr, const int32_t* indices,
+                           const int32_t* heavy_rows, const int64_t* counts, void* out, int64_t n_src,
+                           int64_t n_rows, int64_t nnz, int F, int mean, cudaStream_t stream) {
+  auto heavy = gather_mean_csr_heavy_kernel<T, VEC>;
+  static int heavy_grid = 0;  // set once: as many blocks as fit on the first device's SMs
+  if (heavy_grid == 0) {
+    int device = 0, n_sm = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, heavy, kCsrHeavyThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    heavy_grid = n_sm * per_sm;
+  }
+  gather_mean_csr_kernel<T, VEC><<<(unsigned)grid_for(n_rows), kThreads, 0, stream>>>(
+      static_cast<const T*>(h), indptr, indices, static_cast<T*>(out), n_src, n_rows, nnz, F, mean);
+  heavy<<<(unsigned)heavy_grid, kCsrHeavyThreads, 0, stream>>>(
+      static_cast<const T*>(h), indptr, indices, heavy_rows, counts, static_cast<T*>(out), n_src, nnz, F, mean);
+  return (int)cudaGetLastError();
+}
+
 // Instantiate LAUNCH<T, VEC> for the vector width `vec` (a bf16 may take
 // 2-byte vectors, a float at least 4).
 #define DG_DISPATCH_VEC(T, vec, LAUNCH, ...)                                  \
@@ -877,6 +1077,15 @@ int dispatch_gather_mean_bwd(const void* d_out, TransposeWs tw, void* d_h, int64
                              int64_t n_keys, int k, int F, cudaStream_t stream) {
   const int vec = vec_for(d_out, d_h, (int64_t)F * sizeof(T), sizeof(T));
   DG_DISPATCH_VEC(T, vec, launch_gather_mean_bwd, d_out, tw, d_h, cap, n_keys, k, F, stream)
+}
+
+template <typename T>
+int dispatch_gather_mean_csr(const void* h, const int64_t* indptr, const int32_t* indices,
+                             const int32_t* heavy_rows, const int64_t* counts, void* out, int64_t n_src,
+                             int64_t n_rows, int64_t nnz, int F, int mean, cudaStream_t stream) {
+  const int vec = vec_for(h, out, (int64_t)F * sizeof(T), sizeof(T));
+  DG_DISPATCH_VEC(T, vec, launch_gather_mean_csr, h, indptr, indices, heavy_rows, counts, out, n_src, n_rows, nnz,
+                  F, mean, stream)
 }
 
 }  // namespace
@@ -977,6 +1186,46 @@ int dg_gather_mean_bwd(const void* d_out, int32_t* ws, void* d_h, int64_t cap, i
   switch (dtype) {
     case 0: return dispatch_gather_mean_bwd<float>(d_out, tw, d_h, cap, S * k, k, F, st);
     case 1: return dispatch_gather_mean_bwd<__nv_bfloat16>(d_out, tw, d_h, cap, S * k, k, F, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K3-csr's light limit: rows with more in-edges are heavy.
+int dg_csr_light_max() { return kCsrLightMax; }
+
+// K3-csr's plan of an int64 CSC indptr [n_rows + 1] over nnz edges:
+// heavy_rows [n_rows] int32 gets the heavy rows in its first counts[0]
+// places, counts [2] int64 (zeroed by the caller) their number and their
+// edges.  One launch.
+int dg_csr_plan(const int64_t* indptr, int64_t n_rows, int64_t nnz, int32_t* heavy_rows, int64_t* counts,
+                void* stream) {
+  if (n_rows == 0) return 0;
+  if (n_rows < 0 || nnz < 0) return (int)cudaErrorInvalidValue;
+  csr_plan_kernel<<<(unsigned)min64((n_rows + kThreads - 1) / kThreads, kMaxBlocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(indptr, n_rows, nnz, heavy_rows,
+                                                         reinterpret_cast<unsigned long long*>(counts));
+  return (int)cudaGetLastError();
+}
+
+// K3-csr.  dtype 0 = float32, 1 = bfloat16 (of h and out).  out[r] = the sum
+// of h[indices[e]] over e in [indptr[r], indptr[r + 1]), in f32, divided by
+// max(deg, 1) when mean is 1, written once in h's dtype; h is [n_src, F],
+// out [n_rows, F], every row written; heavy_rows and counts from
+// dg_csr_plan of the same indptr.  Two launches: the light rows, then the
+// heavy rows.
+int dg_gather_mean_csr(const void* h, const int64_t* indptr, const int32_t* indices, const int32_t* heavy_rows,
+                       const int64_t* counts, void* out, int64_t n_src, int64_t n_rows, int64_t nnz, int F,
+                       int dtype, int mean, void* stream) {
+  if (n_rows == 0 || F == 0) return 0;
+  if (n_rows < 0 || nnz < 0 || F < 0 || (nnz > 0 && n_src <= 0)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch_gather_mean_csr<float>(h, indptr, indices, heavy_rows, counts, out, n_src, n_rows, nnz, F,
+                                             mean, st);
+    case 1:
+      return dispatch_gather_mean_csr<__nv_bfloat16>(h, indptr, indices, heavy_rows, counts, out, n_src, n_rows,
+                                                     nnz, F, mean, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,19 +7,22 @@ SAGE (mean), GCN (symmetric norm with the true full-graph degrees) and GAT
 (exact softmax over every in-edge).
 
 :func:`full_graph_inference` keeps the graph, the features and every
-layer's activations on the device.  Per layer the edges are walked in fixed
-chunks of the CSC edge array: a chunk's source rows are gathered through K1
-and summed into their destination rows with ``index_add_`` in f32, keyed by
-the edge→row map computed once per call.  GAT takes two walks per layer
-over the projected table: the row maximum of ``leaky_relu(el[dst] +
-er[src])`` comes from a ``scatter_reduce_("amax")`` of the cheap [E, H]
-``er[src]`` (leaky_relu is monotone), then a second walk gathers ``z[src]``
-through K1 and adds ``w`` and ``w * z[src]``, w = exp(score - max), into
-f32 sums, and one division ends the exact softmax.  An edge chunk may split
-a row: both walks add across chunks.  ``h[indices]`` or ``z[indices]`` is
-never built for the whole graph: at 30M edges and 512 bf16 columns that
-would be 30 GB.  The JAX package's span plan, one-hot band matmuls and head
-expander shape its walks to the TPU and are not carried over.
+layer's activations on the device.  SAGE and GCN walk each layer's edges
+in one call of K3-csr (``ops/gather.gather_mean_csr``): every row's CSC
+in-edges summed in f32 and written once, the mean's division (SAGE) before
+the one rounding, with the heavy rows planned once a pass (``csr_plan``).
+GAT walks the edges in fixed chunks of the CSC edge array, keyed by the
+edge→row map computed once per call, two walks per layer over the
+projected table: the row maximum of ``leaky_relu(el[dst] + er[src])``
+comes from a ``scatter_reduce_("amax")`` of the cheap [E, H] ``er[src]``
+(leaky_relu is monotone), then a second walk gathers ``z[src]`` through K1
+and adds ``w`` and ``w * z[src]``, w = exp(score - max), into f32 sums with
+``index_add_``, and one division ends the exact softmax.  An edge chunk may
+split a row: both walks add across chunks.  ``h[indices]`` or
+``z[indices]`` is never built for the whole graph: at 30M edges and 512
+bf16 columns that would be 30 GB.  The JAX package's span plan, one-hot
+band matmuls and head expander shape its walks to the TPU and are not
+carried over.
 
 :func:`full_graph_inference_host` keeps features and activations in host
 memory (numpy, or an ``np.memmap``); nothing of shape [N, *] reaches the
@@ -44,7 +47,7 @@ from dist_gnn_tpu_torch.graph import HostGraph
 from dist_gnn_tpu_torch.models.gat import GAT
 from dist_gnn_tpu_torch.models.gcn import GCN
 from dist_gnn_tpu_torch.models.sage import SAGE
-from dist_gnn_tpu_torch.ops.gather import gather_rows
+from dist_gnn_tpu_torch.ops.gather import csr_plan, gather_mean_csr, gather_rows
 from dist_gnn_tpu_torch.utils import native, trace
 from dist_gnn_tpu_torch.utils.device import DeviceLike, resolve_device
 from dist_gnn_tpu_torch.utils.staging import PinnedRing
@@ -146,7 +149,8 @@ def full_graph_inference(
     card).
 
     ``params`` (a state_dict) overrides the model's own weights when
-    given.  ``edge_chunk`` bounds the edges of one gather.  Each family
+    given.  ``edge_chunk`` bounds the edges of one gather of GAT's walks and
+    of the CPU's (K3-csr's plain version).  Each family
     casts where the JAX package's does: SAGE through ``_layer_forward`` in
     the compute dtype; GCN in h's dtype (the neighbour sum in f32, the
     product in h's dtype, the bias added in f32); GAT through
@@ -155,28 +159,35 @@ def full_graph_inference(
     ``NotImplementedError``.
 
     The pass is the span ``infer_pass`` of ``utils/trace``; inside it
-    ``infer.upload`` (the graph and features to the device, the edge rows
-    and degrees) and, per layer (attr ``layer``), ``infer.edge_walk`` (the
-    chunk loop and the mean or norm it ends in) and ``infer.dense`` (the
-    layer's products and the ReLU; GAT's projection and its combine are
-    one each)."""
+    ``infer.upload`` (the graph and features to the device; the heavy-row
+    plan for SAGE and GCN, GCN's degrees, GAT's edge rows) and, per layer
+    (attr ``layer``), ``infer.edge_walk`` (K3-csr and GCN's norm, or GAT's
+    chunk loops) and ``infer.dense`` (the layer's products and the ReLU;
+    GAT's projection and its combine are one each).  SAGE and GCN count,
+    per layer, the edges walked (``infer.walk_edges``) and the heavy rows'
+    rows and edges (``infer.walk_heavy_rows``, ``infer.walk_heavy_edges``,
+    0-d tensors of the plan)."""
     _check_model(model, "full_graph_inference")
     with trace.span("infer_pass"):
         dev = resolve_device(device)
         N = hg.num_nodes
         nnz = hg.num_edges
+        is_gat = isinstance(model, GAT)
         with trace.span("infer.upload"):
             indptr = torch.from_numpy(np.asarray(hg.indptr, dtype=np.int64)).to(dev)
             indices = torch.from_numpy(np.asarray(hg.indices, dtype=np.int32)).to(dev)
-            erows = _edge_rows(indptr, N, nnz)
-            deg = (indptr[1:] - indptr[:-1]).to(torch.float32)
             h = features.to(dev)
+            if is_gat:
+                erows = _edge_rows(indptr, N, nnz)
+            else:
+                plan = csr_plan(indptr, nnz)
             if isinstance(model, GCN):
+                deg = (indptr[1:] - indptr[:-1]).to(torch.float32)
                 inv_sqrt = _inv_sqrt_deg(deg).to(h.dtype)
         for l in range(len(model.dims)):
             p = _layer_params(model, params, l, dev)
             last = l == len(model.dims) - 1
-            if isinstance(model, GAT):
+            if is_gat:
                 d_out, H = model.dims[l][1], model.num_heads
                 with trace.span("infer.dense", layer=l):
                     z, el, er = model._project(p, h, d_out)
@@ -185,20 +196,22 @@ def full_graph_inference(
                 with trace.span("infer.dense", layer=l):
                     h = model._combine(p, agg.to(z.dtype), d_out, last)
                 continue
+            trace.count("infer.walk_edges", nnz)
+            trace.count("infer.walk_heavy_rows", plan.n_heavy)
+            trace.count("infer.walk_heavy_edges", plan.heavy_edges)
             if isinstance(model, GCN):
                 # each source row scaled once per layer, in h's dtype: the same
                 # products as scaling every gathered edge row
                 with trace.span("infer.edge_walk", layer=l):
-                    ssum = _edge_sum(h * inv_sqrt[:, None], indices, erows, edge_chunk)
-                    agg = ssum.to(h.dtype) * inv_sqrt[:, None] + h / (deg.to(h.dtype) + 1)[:, None]
+                    ssum = gather_mean_csr(h * inv_sqrt[:, None], indptr, indices, False, plan, edge_chunk)
+                    agg = ssum * inv_sqrt[:, None] + h / (deg.to(h.dtype) + 1)[:, None]
                 with trace.span("infer.dense", layer=l):
                     h = model._layer_forward(p, agg, agg.dtype)
                     if not last:
                         h = torch.relu(h)
             else:
                 with trace.span("infer.edge_walk", layer=l):
-                    ssum = _edge_sum(h, indices, erows, edge_chunk)
-                    h_mean = (ssum / torch.clamp(deg, min=1)[:, None]).to(h.dtype)
+                    h_mean = gather_mean_csr(h, indptr, indices, True, plan, edge_chunk)
                 with trace.span("infer.dense", layer=l):
                     h = model._layer_forward(p, h, h_mean)
                     if not last:

@@ -1,5 +1,6 @@
 """K1 (feature-row gather), K2 (the same gather by double-buffered row
-copies) and K3 (masked neighbour mean): wrappers.
+copies), K3 (masked neighbour mean) and K3-csr (the full-graph neighbour
+mean or sum over a CSC): wrappers.
 
 Counterpart of ``dist_gnn_tpu/ops/gather_pallas.py`` (``gather_rows``,
 ``gather_rows_dma`` and ``gather_mean``).  The kernels are CUDA C++ for sm_90a in
@@ -53,6 +54,14 @@ def _lib() -> ctypes.CDLL:
         lib.dg_slot_transpose.restype = i32
         lib.dg_gather_mean_bwd.argtypes = [p, p, p, i64, i64, i32, i32, i32, p]
         lib.dg_gather_mean_bwd.restype = i32
+        lib.dg_csr_light_max.argtypes = []
+        lib.dg_csr_light_max.restype = i32
+        lib.dg_csr_plan.argtypes = [p, i64, i64, p, p, p]
+        lib.dg_csr_plan.restype = i32
+        lib.dg_gather_mean_csr.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]
+        lib.dg_gather_mean_csr.restype = i32
+        if lib.dg_csr_light_max() != CSR_LIGHT_MAX:
+            raise RuntimeError(f"csrc/gather.cu's light limit {lib.dg_csr_light_max()} is not {CSR_LIGHT_MAX}")
         lib._argtypes_set = True
     return lib
 
@@ -438,3 +447,141 @@ def gather_mean(
 
 
 gather_mean.launches = 0
+
+
+# ---- K3-csr: the full-graph walk ---------------------------------------------------------------
+
+CSR_LIGHT_MAX = 256  # csrc/gather.cu kCsrLightMax: rows with more in-edges are heavy
+
+
+class CsrPlan(NamedTuple):
+    """K3-csr's heavy rows of a CSC: those with more than
+    :data:`CSR_LIGHT_MAX` in-edges.  ``rows`` is [N] int32, whose first
+    ``n_heavy`` entries are the heavy rows (on the card in no fixed order;
+    in the plain version increasing, the rest -1); ``n_heavy`` and
+    ``heavy_edges`` (their in-edges) are 0-d int64 tensors on indptr's
+    device."""
+
+    rows: torch.Tensor
+    n_heavy: torch.Tensor
+    heavy_edges: torch.Tensor
+
+
+def csr_plan_plain(indptr: torch.Tensor) -> CsrPlan:
+    """Plain version of :func:`csr_plan`."""
+    deg = indptr[1:] - indptr[:-1]
+    heavy = torch.nonzero(deg > CSR_LIGHT_MAX).reshape(-1)
+    rows = torch.full((deg.numel(),), -1, dtype=torch.int32, device=indptr.device)
+    rows[: heavy.numel()] = heavy.to(torch.int32)
+    counts = torch.stack([torch.tensor(heavy.numel(), device=indptr.device), deg[heavy].sum().to(torch.int64)])
+    return CsrPlan(rows, counts[0], counts[1])
+
+
+def _check_indptr(indptr: torch.Tensor, index: int) -> None:
+    if indptr.get_device() != index:
+        raise ValueError(f"indptr must lie on CUDA device {index}")
+    require(
+        indptr.dtype == torch.int64 and indptr.dim() == 1 and indptr.numel() >= 1 and indptr.is_contiguous(),
+        "indptr must be a contiguous non-empty 1-D int64 tensor",
+    )
+
+
+def csr_plan(indptr: torch.Tensor, nnz: int) -> CsrPlan:
+    """The heavy rows of the CSC ``indptr`` ([N + 1] int64) over ``nnz``
+    edges (the kernels clamp each row's edges into them), which
+    :func:`gather_mean_csr` gives one block each — on the card one kernel
+    over the rows and a zero fill, no read-back (plain version:
+    :func:`csr_plan_plain`).  Build it once for a graph and pass it to
+    every layer's walk."""
+    if indptr.device.type == "cpu":
+        return csr_plan_plain(indptr)
+    require(indptr.is_cuda, "indptr must lie on a CUDA device")
+    _check_indptr(indptr, indptr.get_device())
+    n_rows = indptr.numel() - 1
+    counts = torch.zeros(2, dtype=torch.int64, device=indptr.device)
+    rows = torch.empty(n_rows, dtype=torch.int32, device=indptr.device)
+    rc = _lib().dg_csr_plan(indptr.data_ptr(), n_rows, nnz, rows.data_ptr(), counts.data_ptr(), stream_of(indptr))
+    check_launch(rc, "csr_plan")
+    csr_plan.launches += 1
+    return CsrPlan(rows, counts[0], counts[1])
+
+
+csr_plan.launches = 0
+
+
+def _check_csr(h: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, index: int) -> None:
+    """Raise ``ValueError`` unless h, indptr and indices suit K3-csr on
+    device ``index`` (the checks that keep its kernels inside their
+    allocations; they clamp each row's edges into indices and each id into
+    h)."""
+    _check_rows(h, "h")
+    _check_indptr(indptr, index)
+    if indices.get_device() != index:
+        raise ValueError(f"indices must lie on CUDA device {index}")
+    require(
+        indices.dtype == torch.int32 and indices.dim() == 1 and indices.is_contiguous(),
+        "indices must be a contiguous 1-D int32 tensor",
+    )
+    if indptr.numel() != h.shape[0] + 1:
+        raise ValueError(f"indptr has {indptr.numel()} entries, h {h.shape[0]} rows: it needs N + 1")
+
+
+def gather_mean_csr_plain(
+    h: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, mean: bool = True, edge_chunk: int = 1 << 18
+) -> torch.Tensor:
+    """Plain version of :func:`gather_mean_csr`: the source rows of each
+    ``edge_chunk`` edges gathered, cast to f32 and added into an [N, F] f32
+    sum with ``index_add_``, divided by ``max(deg, 1)`` for the mean, then
+    cast once to h's dtype."""
+    N = indptr.numel() - 1
+    nnz = indices.numel()
+    deg = indptr[1:] - indptr[:-1]
+    erows = torch.repeat_interleave(torch.arange(N, device=h.device), deg, output_size=nnz)
+    acc = torch.zeros((N, h.shape[1]), dtype=torch.float32, device=h.device)
+    for b0 in range(0, nnz, edge_chunk):
+        acc.index_add_(0, erows[b0 : b0 + edge_chunk], gather_rows_plain(h, indices[b0 : b0 + edge_chunk]).float())
+    if mean:
+        acc = acc / torch.clamp(deg, min=1).to(torch.float32)[:, None]
+    return acc.to(h.dtype)
+
+
+def gather_mean_csr(
+    h: torch.Tensor,  # [N, F] float32 or bfloat16
+    indptr: torch.Tensor,  # [N + 1] int64: row r's in-edges are indices[indptr[r]:indptr[r+1]]
+    indices: torch.Tensor,  # [nnz] int32 source rows
+    mean: bool = True,
+    plan: Optional[CsrPlan] = None,
+    edge_chunk: int = 1 << 18,
+) -> torch.Tensor:
+    """The sum over each row's CSC in-edges of h[src], divided by
+    ``max(deg, 1)`` when ``mean`` (SAGE) or not (GCN), [N, F] in h's dtype,
+    rows with no in-edge 0 — K3-csr on the card (plain version:
+    :func:`gather_mean_csr_plain`, which walks ``edge_chunk`` edges at a
+    time; the kernel ignores it).  ``plan`` is :func:`csr_plan` of
+    ``indptr``, built here when not given.
+
+    The kernels sum each row in f32 in CSC order and round once, the mean's
+    division before the rounding: the same bits on every call, and the
+    plain version's up to the order of the f32 sum."""
+    if h.device.type == "cpu":
+        return gather_mean_csr_plain(h, indptr, indices, mean, edge_chunk)
+    require(h.is_cuda, "h must lie on a CUDA device")
+    _check_csr(h, indptr, indices, h.get_device())
+    N, F = h.shape
+    if plan is None:
+        plan = csr_plan(indptr, indices.numel())
+    require(
+        plan.rows.get_device() == h.get_device() and plan.rows.numel() == N and plan.n_heavy.dtype == torch.int64,
+        "plan must be csr_plan of this indptr",
+    )
+    out = h.new_empty((N, F))
+    rc = _lib().dg_gather_mean_csr(
+        h.data_ptr(), indptr.data_ptr(), indices.data_ptr(), plan.rows.data_ptr(), plan.n_heavy.data_ptr(),
+        out.data_ptr(), N, N, indices.numel(), F, _DTYPE_CODES[h.dtype], int(mean), stream_of(h),
+    )
+    check_launch(rc, "gather_mean_csr")
+    gather_mean_csr.launches += 1
+    return out
+
+
+gather_mean_csr.launches = 0

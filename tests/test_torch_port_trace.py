@@ -228,3 +228,34 @@ def test_full_graph_inference_spans(data, tracing, family):
     trace.disable()
     assert torch.equal(out, full_graph_inference(model, None, hg, torch.from_numpy(arrays["features"]),
                                                  edge_chunk=256, device="cpu"))
+
+
+@pytest.mark.parametrize("family", ["sage", "gcn", "gat"])
+def test_full_graph_inference_counts_the_walk(tracing, family):
+    """SAGE and GCN count, per layer, the edges K3-csr walks and the heavy
+    rows' rows and edges (the plan's 0-d tensors); GAT walks no CSR."""
+    from dist_gnn_tpu_torch.models import GCN
+    from dist_gnn_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(2)
+    n, hub = 300, gather.CSR_LIGHT_MAX + 30  # node 7 takes a hub's in-edges
+    dst = np.concatenate([rng.integers(0, n, 900), np.full(hub, 7)])
+    hg = HostGraph.from_coo(rng.integers(0, n, dst.shape[0]), dst, n)
+    feats = torch.from_numpy(rng.standard_normal((n, 12)).astype(np.float32))
+    L, gen = 2, torch.Generator().manual_seed(1)
+    if family == "sage":
+        model = SAGE(12, 16, 5, L, generator=gen, device="cpu")
+    elif family == "gcn":
+        model = GCN(12, 16, 5, L, generator=gen, device="cpu")
+    else:
+        model = GAT(12, 8, 5, L, num_heads=2, generator=gen, device="cpu")
+    full_graph_inference(model, None, hg, feats, edge_chunk=128, device="cpu")
+    _, counters, dropped = trace.drain()
+    deg = np.diff(hg.indptr)
+    if family == "gat":
+        assert not any(name.startswith("infer.walk") for name in counters)
+        return
+    assert dropped == 0 and deg[7] > gather.CSR_LIGHT_MAX
+    assert counters == {"infer.walk_edges": L * hg.num_edges,
+                        "infer.walk_heavy_rows": L * int((deg > gather.CSR_LIGHT_MAX).sum()),
+                        "infer.walk_heavy_edges": L * int(deg[deg > gather.CSR_LIGHT_MAX].sum())}
