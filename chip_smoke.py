@@ -79,7 +79,13 @@ weights from a seed.  Phases, one JSON line each:
    (bf16 kernels must have some, the exact-f32 ones none); after them,
    both kernels in bf16 and f32 at edge shapes (S not a multiple of the
    row tile, E 37 and 1024, D 7 and 47, H 1 and 8, K 1 and 32, all-masked
-   rows);
+   rows); then K9 and K9-bwd (``ops/attention.py``, the transformer's
+   scores) at the transformer cell's three layer shapes (batch 4096,
+   fanout (15, 10, 5), 95% of slots valid, three rows with none) against
+   their plain versions in bf16, with times, bounds and device ms, and one
+   ``GraphTransformer`` step on the main path's blocks against the same
+   step on the plain versions (launches: K9, K9-bwd, K4 and K5 three
+   times each);
 8. training_sage / training_gat: the loss and every parameter's gradient
    on one step's blocks against the same step with every kernel swapped
    for its plain version, in f32 and in bf16, then 8 ``Trainer.train_step`` calls timed, with
@@ -259,7 +265,7 @@ weights from a seed.  Phases, one JSON line each:
 
 Then the profiler's count of sessions that lost kernel records
 (``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
-K1, K2, K3, K3-bwd, K4, K5, the slot transpose, K7, K8, each with its
+K1, K2, K3, K3-bwd, K4, K5, K9, K9-bwd, the slot transpose, K7, K8, each with its
 device ms, its launches per distributed step and per ``DistHostTrainer``
 batch at world 1: K7 and K8 from the weighted host-structure run, the
 others from dist_host_features; and per two-tier ``DistTrainer`` step,
@@ -317,6 +323,13 @@ LOGITS_BF16_TOL = 5e-2
 K4_BF16_TOL = 1e-2
 # f32: the same arithmetic summed in another order.
 K4_F32_TOL = 1e-5
+# K9's scores against its plain version: f32 sums of the same bf16 products
+# in another order, as a share of the largest score; its backward writes
+# the folded queries' gradient and adds into d_x in bf16, each from f32
+# sums taken in another order, so an element may land a bf16 ulp (2**-8)
+# apart, as K4's output may.
+K9_SCORE_TOL = 1e-4
+K9_BWD_BF16_TOL = 1e-2
 # The K3 backward and K5 in f32: sums in another order than the plain
 # version's (whose index_add_ on the card adds atomically), and K5's dW
 # atomics across blocks in an order that changes per run.
@@ -453,6 +466,137 @@ def gat_edge_checks(gat_ops, gen) -> list:
             torch.cuda.synchronize()
             rows.append({"K": K, "S": S, "E": E, "H": H, "D": D, "dtype": str(dt), "err_k4": e4, "err_k5": e5})
     return rows
+
+
+ATTN_CELL_LAYERS = ((5, 216_576, 100), (10, 24_576, 512), (15, 4_096, 512))  # (K, S, E), input-first
+
+
+def attention_phase(cuda, gen, blocks, call_device_ms, cuda_time_ms, card) -> tuple:
+    """K9 and K9-bwd (``ops/attention.py``) against their plain versions at
+    the transformer cell's three layer shapes (95% of slots valid, three
+    rows with none), bf16, with times, bounds, device ms and the library
+    form's time (``torch.einsum``, no mask and no shift); then one
+    forward and backward of ``GraphTransformer`` on the main path's
+    ``blocks`` with every kernel against the same step on the plain
+    versions, and its launches.  Returns the kernels line's K9 and K9-bwd
+    entries."""
+    import torch
+
+    from dist_gnn_tpu_torch.models.transformer import GraphTransformer
+    from dist_gnn_tpu_torch.ops import attention as attn_ops
+    from dist_gnn_tpu_torch.ops import gat as gat_ops
+
+    H = 4
+    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0}
+    bwd = dict(fwd)
+    layers, err_f, err_b = [], 0.0, 0.0
+    for l, (K, S, E) in enumerate(ATTN_CELL_LAYERS):
+        x_n = torch.randn(K, S, E, device=cuda, generator=gen).to(torch.bfloat16)
+        qt = (torch.randn(H, S, E, device=cuda, generator=gen) * 0.1).to(torch.bfloat16)
+        mask_f = (torch.rand(S, K, device=cuda, generator=gen) < 0.95).float()
+        mask_f[:3] = 0
+        ds = torch.randn(K, S, H, device=cuda, generator=gen)
+        dxn = torch.randn(K, S, E, device=cuda, generator=gen).to(torch.bfloat16)
+        scale = 128 ** -0.5
+        need_dx = l > 0  # as in a training step
+        s = attn_ops.score_fwd(x_n, qt, mask_f, scale)
+        e_s = share_err(s, attn_ops.score_fwd_plain(x_n, qt, mask_f, scale))
+        check(e_s <= K9_SCORE_TOL, f"K9 layer {l}: error {e_s} > {K9_SCORE_TOL}")
+        check(bool((s[:, :3] == 0).all()), "K9: rows with no valid slot must score 0")
+        got = attn_ops.score_bwd(x_n, qt, mask_f, ds, dxn.clone() if need_dx else None, scale)
+        want = attn_ops.score_bwd_plain(x_n, qt, mask_f, ds, dxn.clone() if need_dx else None, scale)
+        e_b = {}
+        for name, a, b in zip(("dqt", "dxn"), got, want):
+            check((a is None) == (b is None) == (name == "dxn" and not need_dx), f"K9-bwd {name} presence")
+            if a is not None:
+                e_b[name] = share_err(a, b)
+                check(e_b[name] <= K9_BWD_BF16_TOL, f"K9-bwd layer {l} {name}: error {e_b[name]}")
+        check(bool((got[0][:, :3] == 0).all()), "K9-bwd: rows with no valid slot must have 0 gradients")
+        V = int(mask_f.sum())
+        bf = V * E * 2 + H * S * E * 2 + S * K * 4 + K * S * H * 4
+        bb = V * E * 2 + 2 * H * S * E * 2 + V * H * 4 + S * K * 4 + (2 * V * E * 2 if need_dx else 0)
+        ff, fb = 2 * V * E * H, 2 * V * E * H * (2 if need_dx else 1)
+        args_b = (x_n, qt, mask_f, ds, dxn if need_dx else None, scale)
+        ds_lo = ds.to(torch.bfloat16)
+
+        def library_bwd():  # the two products in x's dtype, without the mask
+            dqt = torch.einsum("ksh,kse->hse", ds_lo, x_n)
+            return dqt, dxn.add_(torch.einsum("ksh,hse->kse", ds_lo, qt)) if need_dx else None
+
+        lay_f = {"layer": l, "K": K, "S": S, "E": E, "H": H, "valid_slots": V, "bytes": bf, "flops": ff,
+                 "err": e_s, "ms": cuda_time_ms(lambda: attn_ops.score_fwd(x_n, qt, mask_f, scale)),
+                 "plain_ms": cuda_time_ms(lambda: attn_ops.score_fwd_plain(x_n, qt, mask_f, scale), iters=5),
+                 "library_ms": cuda_time_ms(lambda: torch.einsum("kse,hse->ksh", x_n, qt)),
+                 "bound_ms": max(bf / HBM_BYTES_PER_S, ff / BF16_FLOPS) * 1e3,
+                 "device_ms": call_device_ms(lambda: attn_ops.score_fwd(x_n, qt, mask_f, scale),
+                                             ["attn_score_fwd"])}
+        lay_b = {"layer": l, "K": K, "S": S, "E": E, "H": H, "need_dx": need_dx, "bytes": bb, "flops": fb,
+                 "err": e_b, "ms": cuda_time_ms(lambda: attn_ops.score_bwd(*args_b)),
+                 "plain_ms": cuda_time_ms(lambda: attn_ops.score_bwd_plain(*args_b), iters=5),
+                 "library_ms": cuda_time_ms(library_bwd),
+                 "bound_ms": max(bb / HBM_BYTES_PER_S, fb / BF16_FLOPS) * 1e3,
+                 "device_ms": call_device_ms(lambda: attn_ops.score_bwd(*args_b), ["attn_score_bwd"])}
+        for acc, lay in ((fwd, lay_f), (bwd, lay_b)):
+            for key in acc:
+                acc[key] += lay[key]
+        err_f = max(err_f, max_abs(s, attn_ops.score_fwd_plain(x_n, qt, mask_f, scale)))
+        err_b = max(err_b, max(max_abs(a, b) for a, b in zip(got, want) if a is not None))
+        layers.append({"fwd": lay_f, "bwd": lay_b})
+        del x_n, qt, mask_f, ds, ds_lo, dxn, s, got, want
+
+    # one training step's forward and backward of the model, kernels against plain versions
+    model = GraphTransformer(100, 128, 47, len(blocks), num_heads=H, compute_dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(21), device=cuda)
+    for p in model.parameters():  # no zero start, so every path carries a gradient
+        with torch.no_grad():
+            p.add_(0.05 * torch.randn(p.shape, device=cuda, generator=gen))
+    x = torch.randn(blocks[0].num_src, 100, device=cuda, generator=gen).to(torch.bfloat16)
+    drop = [torch.randint(0, 2**32, (b.num_dst,), device=cuda, generator=gen, dtype=torch.int64)
+            for b in blocks[:-1]]
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model(blocks, x, train=True, rng=list(drop), contiguous_first=True)
+        out.float().square().mean().backward()
+        return out.detach().float(), {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    counters = (attn_ops.score_fwd, attn_ops.score_bwd, gat_ops.gat_fwd, gat_ops.gat_bwd)
+    before = [c.launches for c in counters]
+    out_k, grads_k = step()
+    torch.cuda.synchronize()
+    launches = dict(zip(("attn_score_fwd", "attn_score_bwd", "gat_fwd", "gat_bwd"),
+                        (c.launches - b for c, b in zip(counters, before))))
+    check(all(n == len(blocks) for n in launches.values()), f"transformer step launches {launches}")
+    swaps = [(attn_ops, "score_fwd", attn_ops.score_fwd_plain), (attn_ops, "score_bwd", attn_ops.score_bwd_plain),
+             (gat_ops, "gat_fwd", gat_ops.gat_fwd_plain), (gat_ops, "gat_bwd", gat_ops.gat_bwd_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        out_p, grads_p = step()
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    step_logit = share_err(out_k, out_p)
+    step_grad = max(float((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm()) for n in grads_p)
+    check(step_logit <= LOGITS_BF16_TOL, f"transformer step logits: {step_logit} > {LOGITS_BF16_TOL}")
+    check(step_grad <= GRAD_BF16_TOL, f"transformer step gradients: {step_grad} > {GRAD_BF16_TOL}")
+    library = ("torch.einsum in bf16: the scores kse,hse->ksh; the backward's ksh,kse->hse and, where d_x is "
+               "asked for, ksh,hse->kse added into d_x; no mask and no shift")
+    k9 = {"name": "attn_score_fwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/attention.cu",
+          "replaces": None, "launches": launches["attn_score_fwd"], "max_abs_err": err_f, **fwd,
+          "bound_by": "bytes"}
+    k9b = {"name": "attn_score_bwd", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/attention.cu",
+           "replaces": None, "launches": launches["attn_score_bwd"], "max_abs_err": err_b, **bwd,
+           "bound_by": "bytes"}
+    for kern in (k9, k9b):  # no distributed or host-tier phase runs the transformer
+        kern.update(dist_launches_per_step=None, dist_host_launches_per_batch=None, two_tier_launches_per_step=None)
+    emit({"phase": "kernel", "kernel": "K9 attn_score_fwd and K9-bwd attn_score_bwd", "dtype": "bfloat16",
+          "library": library, "shapes_are": "the transformer cell's three layers (batch 4096, fanout 15/10/5)",
+          "times_are": "sums over the three layers", "layers": layers, "k9": k9, "k9_bwd": k9b,
+          "transformer_step": {"batch": blocks[-1].num_dst, "launches": launches, "logit_err": step_logit,
+                               "worst_grad_norm_err": step_grad}, **card})
+    return k9, k9b
 
 
 def kernel_counters() -> dict:
@@ -2277,6 +2421,7 @@ def main() -> int:
     emit({"phase": "kernel", "kernel": "K5 gat_bwd", "dtype": "bfloat16", "library": no_library,
           "times_are": "sums over the three GAT layers of one step (need_dx on layers 1, 2)",
           "layers": k5_layers, **k5, **card})
+    k9, k9b = attention_phase(cuda, kgen, sage_blocks, call_device_ms, cuda_time_ms, card)
 
     # ---- 8. training: gradients against the plain path, then 8 steps -----
     @contextlib.contextmanager
@@ -3910,7 +4055,7 @@ def main() -> int:
           "min_kept_share": profile_device.min_kept_share, "launches_seen": profile_device.launches_seen,
           **card})
     emit({"kernels": [{**{k: kern[k] for k in keys}, **{k: kern[k] for k in ("launches_count", "hops", "all_hub") if k in kern}}
-                      for kern in (k6, k1, k2, k3, k3b, k3c, k4, k5, st_k, k7, k8)]})
+                      for kern in (k6, k1, k2, k3, k3b, k3c, k4, k5, k9, k9b, st_k, k7, k8)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""Mini-batch GraphSAGE/GAT/GCN node classification — the flagship app.
+"""Mini-batch GraphSAGE/GAT/GCN/graph-transformer node classification — the flagship app.
 
 Counterpart of the JAX package's ``examples/graphsage/node_classification.py``,
 with the same options and defaults and the same printed lines:
@@ -8,6 +8,7 @@ with the same options and defaults and the same printed lines:
   every card:         ... node_classification --dist
   weighted sampling:  ... node_classification --bias
   GAT / GCN:          ... node_classification --model gat | --model gcn
+  graph transformer:  ... node_classification --model transformer (UniMP's layer; no --full-eval)
   bigger than memory: ... node_classification --tier host [--host-struct]
   3-tier data plane:  ... node_classification --tier dist-host
   a saved dataset:    ... node_classification --dataset <name> --root <dir>
@@ -53,7 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=512)
     ap.add_argument("--fan-out", default="10,10")
     ap.add_argument("--hidden", type=int, default=256)
-    ap.add_argument("--model", default="sage", choices=["sage", "gat", "gcn"])
+    ap.add_argument("--model", default="sage", choices=["sage", "gat", "gcn", "transformer"],
+                    help="transformer: UniMP's attention layer with a gated residual (sampled evaluation "
+                         "only: it has no full-graph pass yet)")
     ap.add_argument("--bias", action="store_true", help="weighted sampling (alias tables)")
     ap.add_argument("--replace", action="store_true")
     ap.add_argument("--bf16", action="store_true", help="bf16 features+compute")
@@ -80,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default=None, help="load path prefix")
     ap.add_argument("--metrics-log", default=None, help="JSONL metrics path")
     ap.add_argument("--full-eval", action="store_true",
-                    help="final full-graph layer-wise inference accuracy")
+                    help="final full-graph layer-wise inference accuracy (sage, gat, gcn: the transformer "
+                         "family has no full-graph pass yet)")
     ap.add_argument("--profile", action="store_true",
                     help="report Sampling/Loading/Training ms per iter (slope-timed phases)")
     ap.add_argument("--seed", type=int, default=0)
@@ -225,7 +229,7 @@ def run(args, mesh=None) -> Dict[str, Any]:
     """The whole app in this process: on one device, or as one rank of a
     ``--dist`` / ``--tier dist-host`` world (``mesh``, this rank's
     ``parallel.mesh.Mesh``)."""
-    from dist_gnn_tpu_torch.models import GAT, GCN, SAGE
+    from dist_gnn_tpu_torch.models import GAT, GCN, SAGE, GraphTransformer
     from dist_gnn_tpu_torch.utils.device import resolve_device
     from dist_gnn_tpu_torch.utils.metrics import MetricsLogger
 
@@ -242,7 +246,7 @@ def run(args, mesh=None) -> Dict[str, Any]:
         say(f"dataset={meta['name']} nodes={meta['num_nodes']} edges={meta['num_edges']} "
             f"feat={meta['feature_dim']} classes={meta['num_classes']} "
             f"devices={mesh.size if mesh is not None else 1} dist={args.dist}")
-        model_cls = {"sage": SAGE, "gat": GAT, "gcn": GCN}[args.model]
+        model_cls = {"sage": SAGE, "gat": GAT, "gcn": GCN, "transformer": GraphTransformer}[args.model]
         model = model_cls(meta["feature_dim"], args.hidden, meta["num_classes"], len(fan_out),
                           compute_dtype=torch.bfloat16 if args.bf16 else None,
                           generator=torch.Generator().manual_seed(args.seed), device=dev)
@@ -380,7 +384,10 @@ def rank_main(mesh, args_dict: Dict[str, Any]) -> Dict[str, Any]:
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
     """Parse ``argv`` (default: the command line) and run the app; returns
     rank 0's results (see the module doc)."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.full_eval and args.model == "transformer":
+        parser.error("--full-eval: the transformer family has no full-graph pass yet; its evaluation is sampled")
     if not (args.dist or args.tier == "dist-host"):
         return run(args)
     from dist_gnn_tpu_torch.examples.graphsage import node_classification as app  # importable by the ranks

@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=256, help="global batch (rounded to the world size)")
     ap.add_argument("--fan-out", default="10,10")
     ap.add_argument("--hidden", type=int, default=64)
-    ap.add_argument("--model", default="sage", choices=["sage", "gat", "gcn"])
+    ap.add_argument("--model", default="sage", choices=["sage", "gat", "gcn", "transformer"])
     ap.add_argument("--hot-frac", type=float, default=0.1,
                     help="fraction of nodes replicated into per-rank hot tiers")
     ap.add_argument("--tier", default="hbm", choices=["hbm", "dist-host"],
@@ -67,7 +67,7 @@ def run_worker(mesh, args_dict: Dict[str, Any]) -> Dict[str, Any]:
     from dist_gnn_tpu_torch.cache.builder import build_cache_plan
     from dist_gnn_tpu_torch.dataloading.preprocess import make_synthetic_dataset
     from dist_gnn_tpu_torch.graph import HostGraph
-    from dist_gnn_tpu_torch.models import GAT, GCN, SAGE
+    from dist_gnn_tpu_torch.models import GAT, GCN, SAGE, GraphTransformer
     from dist_gnn_tpu_torch.parallel import DistTrainer, ShardedFeatureStore
     from dist_gnn_tpu_torch.parallel.graph_dist import ShardedGraph
     from dist_gnn_tpu_torch.utils.timing import device_sync
@@ -90,7 +90,7 @@ def run_worker(mesh, args_dict: Dict[str, Any]) -> Dict[str, Any]:
     cap = max(1, int(args.num_nodes * args.hot_frac / n_dev)) * (4 * (args.avg_degree + 2) + 4 * args.feature_dim)
     _, s_hot, f_hot = build_cache_plan(hg, meta["feature_dim"], parts, fan_out, capacity_bytes=cap,
                                        policy="selfish", device=dev)
-    model_cls = {"sage": SAGE, "gat": GAT, "gcn": GCN}[args.model]
+    model_cls = {"sage": SAGE, "gat": GAT, "gcn": GCN, "transformer": GraphTransformer}[args.model]
     model = model_cls(meta["feature_dim"], args.hidden, meta["num_classes"], len(fan_out),
                       generator=torch.Generator().manual_seed(args.seed), device=dev)
     labels_np = np.asarray(arrays["labels"], np.int32)

@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gather", "gat", "sampling", "host")  # csrc/<name>.cu or .cc, one library each
+SOURCES = ("gather", "gat", "attention", "sampling", "host")  # csrc/<name>.cu or .cc, one library each
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -6,7 +6,8 @@ on the CPU at tiny sizes, held to the JAX package's apps.
   with the same flags, default, type and choices.  The differences are
   asserted: the dist app's ``--tpu`` has no counterpart (the card is the
   default) and it gains ``--cpu``; the single app's ``--cpu`` means the
-  CPU device (one device per rank) where JAX's forces 8 CPU devices.
+  CPU device (one device per rank) where JAX's forces 8 CPU devices; both
+  apps' ``--model`` adds ``transformer``, a family the JAX package lacks.
 * Every mode of ``node_classification.main`` runs on a 2,000-node graph
   with ``--cpu``; checkpoint then ``--resume`` carries the step on.
 * Both packages' SAGE app with the same arguments (3 epochs): each
@@ -77,16 +78,24 @@ def _options(parser):
 
 # ---- parser parity ------------------------------------------------------------------
 
+def _without_transformer(port_opts, jax_opts):
+    """The port's ``--model`` choices are JAX's and ``transformer``; the
+    options with that one difference taken out."""
+    dest = port_opts["model"]
+    assert dest[3] == jax_opts["model"][3] + ("transformer",)
+    return {**port_opts, "model": dest[:3] + (jax_opts["model"][3],) + dest[4:]}
+
+
 def test_node_classification_parser_is_jax_s(monkeypatch):
     jax_opts = _options(_jax_parser("node_classification", monkeypatch))
-    port_opts = _options(nc.build_parser())
+    port_opts = _without_transformer(_options(nc.build_parser()), jax_opts)
     assert port_opts == jax_opts
     assert len(port_opts) == 27
 
 
 def test_node_classification_dist_parser_is_jax_s_but_tpu(monkeypatch):
     jax_opts = _options(_jax_parser("node_classification_dist", monkeypatch))
-    port_opts = _options(ncd.build_parser())
+    port_opts = _without_transformer(_options(ncd.build_parser()), jax_opts)
     # the listed differences: JAX's --tpu (a pod over DCN) has no
     # counterpart, the card is the default; --cpu gives gloo on the CPU
     assert "tpu" in jax_opts and "tpu" not in port_opts
@@ -116,6 +125,7 @@ MODES = {
     "sage": [],
     "gat": ["--model", "gat"],
     "gcn": ["--model", "gcn"],
+    "transformer": ["--model", "transformer"],
     "bias": ["--bias"],
     "unroll2": ["--unroll", "2"],
     "unroll3": ["--unroll", "3"],  # 4 batches: a group of 3 and one leftover step
@@ -161,6 +171,14 @@ def test_node_classification_mode_runs(mode, capsys):
             assert "full-graph test accuracy:" in out
     if mode == "bf16_autotune":
         assert "autotuned sampler config: SamplerConfig(frontier_caps=" in out
+
+
+def test_the_transformer_refuses_full_eval(capsys):
+    """The family has no full-graph pass yet: the flag is refused before any
+    work, and the message says why."""
+    with pytest.raises(SystemExit):
+        nc.main(TINY + ["--model", "transformer", "--full-eval"])
+    assert "no full-graph pass" in capsys.readouterr().err
 
 
 def test_bias_needs_probs_in_a_saved_dataset(tmp_path):
