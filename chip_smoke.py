@@ -85,12 +85,19 @@ weights from a seed.  Phases, one JSON line each:
    their plain versions in bf16, with times, bounds and device ms, and one
    ``GraphTransformer`` step on the main path's blocks against the same
    step on the plain versions (launches: K9, K9-bwd, K4 and K5 three
-   times each);
+   times each, K10 four); then K10 (``ops/dropout.py``, dropout) against the
+   parent's ``where(keep, h / (1 - rate), 0)`` form bit for bit, output
+   and gradient, at the training cells' two dropout layers ([216,576,
+   256] and [24,576, 256] bf16, [216,576, 512] and [24,576, 512] f32) at
+   rates 0.5 and 0.3, at odd widths, 0 and 1 rows and an input off
+   16-byte alignment (the profiler naming the vector and the scalar
+   kernel), timed beside its bound and its plain version;
 8. training_sage / training_gat: the loss and every parameter's gradient
    on one step's blocks against the same step with every kernel swapped
    for its plain version, in f32 and in bf16, then 8 ``Trainer.train_step`` calls timed, with
    the launch counters per step (SAGE: K6 3, K1 1, K3 3, the slot
-   transpose 2, K3-bwd 2; GAT: K6 3, K1 1, K4 3, K5 3), a stage breakdown
+   transpose 2, K3-bwd 2; GAT: K6 3, K1 1, K4 3, K5 3; both K10 4, on
+   each hidden layer's output and its gradient), a stage breakdown
    and the device's busy share; k1_or_k2_in_step: the feature gather of a
    SAGE step through K1 and through K2, in turns, in bf16 and f32;
 9. serving_gat: ``Trainer.eval_step`` with the GAT model, K4 three times
@@ -98,7 +105,8 @@ weights from a seed.  Phases, one JSON line each:
 10. training_gcn / serving_gcn: one GCN step's f32 loss and gradients
     against the same step on the CPU (same blocks and keys), then 8
     ``train_step`` calls and 8 ``eval_step`` requests, K6 three times and
-    K1 once per step or request and no other kernel;
+    K1 once per step or request, K10 four times per step and no other
+    kernel;
 11. full_graph_inference_gat / full_graph_inference_gcn: as 6, for the
     trained GAT and GCN;
 12. full_graph_inference_host: ``full_graph_inference_host`` (features
@@ -183,7 +191,7 @@ weights from a seed.  Phases, one JSON line each:
     ``ShardedGraph`` with the plan's hot structure, the plan's hot features
     and the peer-hot table, bf16 and int8 stores: ms per step, exchange
     rounds, every overflow 0); dist_launches (a GAT step, K4/K5, and a
-    weighted sharded SAGE step, K8); dist_inference
+    weighted sharded SAGE step, K8; K10 four times in each); dist_inference
     (``dist_full_graph_inference`` of SAGE, GCN and GAT against
     ``full_graph_inference`` within 5e-2, edges/s); dist_world2_gloo (two
     spawned ranks on the one card over gloo, which carries their CUDA
@@ -248,7 +256,7 @@ weights from a seed.  Phases, one JSON line each:
     bench config, bf16, 2 epochs, ``--autotune --full-eval --checkpoint
     --metrics-log``: val_acc >= 0.99 after epoch 2, the full-graph test
     accuracy >= 0.99, the log's events and fields, every parameter on
-    ``cuda:0``, K6/K1/K3/the slot transpose/K3-bwd launched, ms per step
+    ``cuda:0``, K6/K1/K3/the slot transpose/K3-bwd/K10 launched, ms per step
     beside training_sage's ``Trainer`` ms; then ``--resume`` for one epoch,
     the step carried on); app_variants (one epoch each of ``--model gat``
     (hidden 128), ``--model gcn``, ``--bias`` (K8), ``--unroll 4``,
@@ -265,7 +273,7 @@ weights from a seed.  Phases, one JSON line each:
 
 Then the profiler's count of sessions that lost kernel records
 (``utils/timing.profile_device``), the ``{"kernels": [...]}`` line (K6,
-K1, K2, K3, K3-bwd, K4, K5, K9, K9-bwd, the slot transpose, K7, K8, each with its
+K1, K2, K3, K3-bwd, K4, K5, K9, K9-bwd, K10, the slot transpose, K7, K8, each with its
 device ms, its launches per distributed step and per ``DistHostTrainer``
 batch at world 1: K7 and K8 from the weighted host-structure run, the
 others from dist_host_features; and per two-tier ``DistTrainer`` step,
@@ -302,6 +310,7 @@ K6_PACKED_SLOTS = 131_072  # csrc/sampling.cu kQueueSlots: K6's packed kernel fr
 BATCH = 512
 N_REQUESTS = 8
 N_STEPS = 8
+DROPOUT_PER_STEP = 2 * (len(FAN_OUT) - 1)  # K10 on each hidden layer's output, then on its gradient
 CONV_EPOCHS = 2  # bench.py:54
 VAL_ACC_MIN = 1.0 - 0.01  # the pinned target less its margin (bench.py:52-53)
 # bf16 tolerances, as a share of the reference's largest magnitude: K3
@@ -484,6 +493,7 @@ def attention_phase(cuda, gen, blocks, call_device_ms, cuda_time_ms, card) -> tu
 
     from dist_gnn_tpu_torch.models.transformer import GraphTransformer
     from dist_gnn_tpu_torch.ops import attention as attn_ops
+    from dist_gnn_tpu_torch.ops import dropout as drop_ops
     from dist_gnn_tpu_torch.ops import gat as gat_ops
 
     H = 4
@@ -560,13 +570,14 @@ def attention_phase(cuda, gen, blocks, call_device_ms, cuda_time_ms, card) -> tu
         out.float().square().mean().backward()
         return out.detach().float(), {n: p.grad.float().clone() for n, p in model.named_parameters()}
 
-    counters = (attn_ops.score_fwd, attn_ops.score_bwd, gat_ops.gat_fwd, gat_ops.gat_bwd)
+    counters = (attn_ops.score_fwd, attn_ops.score_bwd, gat_ops.gat_fwd, gat_ops.gat_bwd, drop_ops.dropout)
     before = [c.launches for c in counters]
     out_k, grads_k = step()
     torch.cuda.synchronize()
-    launches = dict(zip(("attn_score_fwd", "attn_score_bwd", "gat_fwd", "gat_bwd"),
+    launches = dict(zip(("attn_score_fwd", "attn_score_bwd", "gat_fwd", "gat_bwd", "dropout"),
                         (c.launches - b for c, b in zip(counters, before))))
-    check(all(n == len(blocks) for n in launches.values()), f"transformer step launches {launches}")
+    check(all(n == len(blocks) for k, n in launches.items() if k != "dropout")
+          and launches["dropout"] == 2 * (len(blocks) - 1), f"transformer step launches {launches}")
     swaps = [(attn_ops, "score_fwd", attn_ops.score_fwd_plain), (attn_ops, "score_bwd", attn_ops.score_bwd_plain),
              (gat_ops, "gat_fwd", gat_ops.gat_fwd_plain), (gat_ops, "gat_bwd", gat_ops.gat_bwd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -599,9 +610,169 @@ def attention_phase(cuda, gen, blocks, call_device_ms, cuda_time_ms, card) -> tu
     return k9, k9b
 
 
+# The training cells' two dropout layers a step (rows, width, dtype): SAGE's
+# in bf16, GAT's and the transformer's 512-wide f32 outputs.
+DROPOUT_CELL_SHAPES = ((216_576, 256, "bfloat16"), (24_576, 256, "bfloat16"),
+                       (216_576, 512, "float32"), (24_576, 512, "float32"))
+
+
+def dropout_phase(cuda, gen, blocks, call_device_ms, cuda_time_ms, card) -> dict:
+    """K10 (``ops/dropout.py``) against its plain version, the parent's
+    ``where(keep, h / (1 - rate), 0)`` form, bit for bit, forward and
+    gradient, at the training cells' shapes (rates 0.5 and 0.3), at odd
+    widths, 0 and 1 rows and an input off 16-byte alignment; the profiler
+    names the vector kernel at the cells' shapes and the scalar one at an
+    odd width.  Then inside one train-mode step of SAGE, GAT and the
+    transformer on the main path's ``blocks``: each dropout call against
+    the plain version on the same input, output and the gradient it
+    passes back, bitwise; and the whole step twice with K10 and twice
+    with the plain version, reporting which logits and gradients differ
+    (GAT's and the transformer's backward add floats in no fixed order,
+    so two K10 steps differ there too).  Times at rate 0.5: the kernel,
+    its device ms, the plain version and the bound (each element read and
+    written once, and the keys).  No one library call computes this
+    mask.  Returns the kernels line's K10 entry without its launches,
+    which the training phases count."""
+    import torch
+
+    from dist_gnn_tpu_torch.models import sage as sage_mod
+    from dist_gnn_tpu_torch.models.gat import GAT
+    from dist_gnn_tpu_torch.models.transformer import GraphTransformer
+    from dist_gnn_tpu_torch.ops import dropout as drop_ops
+    from dist_gnn_tpu_torch.utils.timing import profile_device
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def same(h, keys, rate):
+        """K10's output on h as it lies (its alignment too) and its gradient
+        against the plain version's, bitwise; the share of h kept."""
+        g = torch.randn(h.shape, device=cuda, generator=gen).to(h.dtype)
+        before = drop_ops.dropout.launches
+        out = drop_ops.dropout(h, keys, rate)
+        hk = h.clone().requires_grad_()
+        drop_ops.dropout(hk, keys, rate).backward(g)
+        hp = h.clone().requires_grad_()
+        drop_ops.dropout_plain(hp, keys, rate).backward(g)
+        ref = drop_ops.dropout_plain(h, keys, rate)
+        torch.cuda.synchronize()
+        tag = f"K10 {tuple(h.shape)} {h.dtype} rate {rate}"
+        check(drop_ops.dropout.launches - before == (3 if h.numel() else 0), f"{tag}: launches")
+        check(torch.equal(bits(out), bits(ref)), f"{tag}: output differs from the where form")
+        check(torch.equal(bits(hk.grad), bits(hp.grad)), f"{tag}: gradient differs from the where form")
+        return float((out != 0).float().mean()) if h.numel() else None
+
+    def ran(fn, which):
+        kernels, _ = profile_device(fn, iters=10)  # as call_device_ms: one launch's record can be lost
+        names = sorted({k for k in kernels if "dropout_" in k})
+        check(len(names) == 1 and which in names[0], f"K10 ran {names}, not {which}")
+
+    shapes, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0}
+    for S, H, dt in DROPOUT_CELL_SHAPES:
+        dtype = getattr(torch, dt)
+        h = torch.randn(S, H, device=cuda, generator=gen).to(dtype)
+        keys = torch.randint(0, 2**32, (S,), device=cuda, generator=gen, dtype=torch.int64)
+        kept = {rate: same(h, keys, rate) for rate in (0.5, 0.3)}
+        nbytes = 2 * S * H * h.element_size() + S * 8
+        row = {"S": S, "H": H, "dtype": dt, "kept_share": kept, "bytes": nbytes,
+               "ms": cuda_time_ms(lambda: drop_ops.dropout(h, keys, 0.5)),
+               "device_ms": call_device_ms(lambda: drop_ops.dropout(h, keys, 0.5), ["dropout_"]),
+               "plain_ms": cuda_time_ms(lambda: drop_ops.dropout_plain(h, keys, 0.5), iters=5, warmup=1),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        for key in tot:
+            tot[key] += row[key]
+        shapes.append(row)
+        if S == DROPOUT_CELL_SHAPES[0][0]:
+            ran(lambda: drop_ops.dropout(h, keys, 0.5), "dropout_vec_kernel")
+        del h, keys
+    # the scalar kernel: odd widths, rows off 16 bytes, an input off alignment
+    edge = []
+    for S, H, dt in ((1000, 17, "bfloat16"), (999, 47, "float32"), (513, 100, "bfloat16"), (1, 512, "float32"),
+                     (0, 256, "bfloat16")):
+        dtype = getattr(torch, dt)
+        h = torch.randn(S, H, device=cuda, generator=gen).to(dtype)
+        keys = torch.randint(0, 2**32, (S,), device=cuda, generator=gen, dtype=torch.int64)
+        edge.append({"S": S, "H": H, "dtype": dt, "kept_share": [same(h, keys, r) for r in (0.5, 0.3, 0.1)]})
+    h = torch.randn(3000, 47, device=cuda, generator=gen)
+    keys = torch.randint(0, 2**32, (3000,), device=cuda, generator=gen, dtype=torch.int64)
+    ran(lambda: drop_ops.dropout(h, keys, 0.5), "dropout_scalar_kernel")
+    flat = torch.randn(4000 * 64 + 1, device=cuda, generator=gen)[1:].view(4000, 64)  # 4 bytes off 16
+    keys = torch.randint(0, 2**32, (4000,), device=cuda, generator=gen, dtype=torch.int64)
+    check(drop_ops.vector_width(64, flat.dtype, flat.data_ptr()) == 1, "an unaligned input takes the scalar kernel")
+    edge.append({"S": 4000, "H": 64, "dtype": "float32", "offset_bytes": 4, "kept_share": same(flat, keys, 0.3)})
+
+    def in_model(name, model):
+        with torch.no_grad():
+            for p in model.parameters():  # no zero start, so every path carries a gradient
+                p.add_(0.05 * torch.randn(p.shape, device=cuda, generator=gen))
+        x = torch.randn(blocks[0].num_src, 100, device=cuda, generator=gen).to(torch.bfloat16)
+        drop = [torch.randint(0, 2**32, (b.num_dst,), device=cuda, generator=gen, dtype=torch.int64)
+                for b in blocks[:-1]]
+        calls = []
+
+        def recorded(h, keys, rate):
+            out = drop_ops.dropout(h, keys, rate)
+            call = {"h": h.detach().clone(), "keys": keys, "rate": rate, "out": out.detach().clone()}
+            h.register_hook(lambda g: call.__setitem__("dh", g.detach().clone()))
+            out.register_hook(lambda g: call.__setitem__("g", g.detach().clone()))
+            calls.append(call)
+            return out
+
+        def step(impl):
+            saved = sage_mod.dropout
+            sage_mod.dropout = impl
+            try:
+                model.zero_grad(set_to_none=True)
+                out = model(blocks, x, train=True, rng=list(drop), contiguous_first=True)
+                out.float().square().mean().backward()
+            finally:
+                sage_mod.dropout = saved
+            torch.cuda.synchronize()
+            return out.detach().clone(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+        before = drop_ops.dropout.launches
+        k_1 = step(recorded)
+        check(drop_ops.dropout.launches - before == DROPOUT_PER_STEP == 2 * len(calls), f"{name} step: K10 launches")
+        for i, c in enumerate(calls):
+            hp = c["h"].clone().requires_grad_()
+            ref = drop_ops.dropout_plain(hp, c["keys"], c["rate"])
+            ref.backward(c["g"])
+            check(torch.equal(bits(c["out"]), bits(ref.detach())), f"{name} step, dropout {i}: output differs")
+            check(torch.equal(bits(c["dh"]), bits(hp.grad)), f"{name} step, dropout {i}: gradient differs")
+        k_2, p_1, p_2 = step(drop_ops.dropout), step(drop_ops.dropout_plain), step(drop_ops.dropout_plain)
+
+        def differ(a, b):  # the parameters whose gradients differ, with the largest difference
+            return {n: float((a[1][n].float() - b[1][n].float()).abs().max())
+                    for n in a[1] if not torch.equal(a[1][n], b[1][n])}
+
+        pairs = {"k10_k10": (k_1, k_2), "plain_plain": (p_1, p_2), "k10_plain": (k_1, p_1)}
+        return {"dropout_calls": [[*c["h"].shape, str(c["h"].dtype).removeprefix("torch.")] for c in calls],
+                "calls_bit_equal": True, "params": len(k_1[1]),
+                "logits_equal": {t: torch.equal(a[0], b[0]) for t, (a, b) in pairs.items()},
+                "grads_differ": {t: differ(a, b) for t, (a, b) in pairs.items()}}
+
+    L = len(blocks)
+    models = {"sage": sage_mod.SAGE(100, 256, 47, L, compute_dtype=torch.bfloat16,
+                                    generator=torch.Generator().manual_seed(4), device=cuda),
+              "gat": GAT(100, 128, 47, L, num_heads=4, compute_dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(5), device=cuda),
+              "transformer": GraphTransformer(100, 128, 47, L, num_heads=4, compute_dtype=torch.bfloat16,
+                                              generator=torch.Generator().manual_seed(21), device=cuda)}
+    steps = {name: in_model(name, m) for name, m in models.items()}
+    k10 = {"name": "dropout", "route": "cuda", "source": "dist_gnn_tpu_torch/csrc/sampling.cu",
+           "replaces": None, "max_abs_err": 0.0, **tot, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "kernel", "kernel": "K10 dropout", "bit_equal": True, "in_model_steps": steps,
+          "library": "none: no one PyTorch call computes the keyed per-row mask",
+          "shapes_are": "the training cells' two dropout layers (SAGE bf16, GAT and transformer f32)",
+          "times_are": "forward at rate 0.5, sums over the four shapes", "shapes": shapes, "edge_shapes": edge,
+          **{k: k10[k] for k in tot}, **card})
+    return k10
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper by name; each adds one to its ``launches`` where
     it launches its kernel, and nowhere else."""
+    from dist_gnn_tpu_torch.ops import dropout as drop_ops
     from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, sampling
 
@@ -610,7 +781,8 @@ def kernel_counters() -> dict:
             "gather_rows": gather.gather_rows, "gather_rows_dma": gather.gather_rows_dma,
             "gather_mean": gather.gather_mean, "slot_transpose": gather.slot_transpose,
             "gather_mean_bwd": gather.gather_mean_bwd, "gather_mean_csr": gather.gather_mean_csr,
-            "csr_plan": gather.csr_plan, "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd}
+            "csr_plan": gather.csr_plan, "gat_fwd": gat_ops.gat_fwd, "gat_bwd": gat_ops.gat_bwd,
+            "dropout": drop_ops.dropout}
 
 
 def world2_gloo(mesh, caps, num_nodes) -> dict:
@@ -1050,7 +1222,7 @@ def two_tier_world4(mesh, caps, num_nodes, f_plan, s_plan, tier) -> dict:
     check(ovf == 0 and all(np.isfinite(float(m_["loss"])) for m_ in mets), f"two-tier rank {me}: overflow {ovf}")
     if on_card:  # the step ran through the path's kernels
         ran = {k: launches[k] for k in ("sample_uniform", "gather_rows", "gather_mean", "slot_transpose",
-                                        "gather_mean_bwd")}
+                                        "gather_mean_bwd", "dropout")}
         check(all(v > 0 for v in ran.values()), f"two-tier rank {me}: kernels not launched in the step: {ran}")
     psum = torch.stack([p.detach().double().sum() for p in tr.model.parameters()]).sum().reshape(1)
     sums = [float(x) for x in mesh.all_gather(psum)]
@@ -1149,6 +1321,7 @@ def main() -> int:
     from dist_gnn_tpu_torch.models.inference import full_graph_inference, full_graph_inference_host
     from dist_gnn_tpu_torch.models import sage as sage_mod
     from dist_gnn_tpu_torch.models.sage import SAGE, contiguous_mean
+    from dist_gnn_tpu_torch.ops import dropout as drop_ops
     from dist_gnn_tpu_torch.ops import gat as gat_ops
     from dist_gnn_tpu_torch.ops import gather, prng, sampling, spmm
     from dist_gnn_tpu_torch.ops.hashtable import np_in_sorted
@@ -2422,6 +2595,7 @@ def main() -> int:
           "times_are": "sums over the three GAT layers of one step (need_dx on layers 1, 2)",
           "layers": k5_layers, **k5, **card})
     k9, k9b = attention_phase(cuda, kgen, sage_blocks, call_device_ms, cuda_time_ms, card)
+    k10 = dropout_phase(cuda, kgen, sage_blocks, call_device_ms, cuda_time_ms, card)
 
     # ---- 8. training: gradients against the plain path, then 8 steps -----
     @contextlib.contextmanager
@@ -2430,6 +2604,7 @@ def main() -> int:
         on the same CUDA tensors (a check of the kernels, not a mode of the
         port)."""
         swaps = [(sage_mod, "gather_mean", spmm.gather_mean),
+                 (sage_mod, "dropout", drop_ops.dropout_plain),
                  (gat_ops, "gat_fwd", gat_ops.gat_fwd_plain),
                  (gat_ops, "gat_bwd", gat_ops.gat_bwd_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -2594,7 +2769,7 @@ def main() -> int:
     _, sage_launches = train_phase(
         "training_sage", sage_train,
         {**dict.fromkeys(counters, 0), "sample_uniform": 3, "gather_rows": 1, "gather_mean": 3,
-         "slot_transpose": 2, "gather_mean_bwd": 2}, 20,
+         "slot_transpose": 2, "gather_mean_bwd": 2, "dropout": DROPOUT_PER_STEP}, 20,
         lambda *a: kernel_grad_check("training_sage", sage_train, sage32, *a))
 
     # K1 or K2 for the trainer's gather, inside SAGE steps, in bf16 and f32:
@@ -2610,6 +2785,7 @@ def main() -> int:
     k3["launches"] = sage_launches["gather_mean"]
     st_k["launches"] = sage_launches["slot_transpose"]
     k3b["launches"] = sage_launches["gather_mean_bwd"]
+    k10["launches"] = sage_launches["dropout"]
     gat_model = GAT(100, 128, meta["num_classes"], len(FAN_OUT), num_heads=4,
                     compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(5),
                     device=cuda)
@@ -2617,7 +2793,8 @@ def main() -> int:
     gat32.load_state_dict(gat_model.state_dict())
     gat_trainer, gat_launches = train_phase(
         "training_gat", gat_model,
-        {**dict.fromkeys(counters, 0), "sample_uniform": 3, "gather_rows": 1, "gat_fwd": 3, "gat_bwd": 3}, 30,
+        {**dict.fromkeys(counters, 0), "sample_uniform": 3, "gather_rows": 1, "gat_fwd": 3, "gat_bwd": 3,
+         "dropout": DROPOUT_PER_STEP}, 30,
         lambda *a: kernel_grad_check("training_gat", gat_model, gat32, *a))
     k4["launches"] = gat_launches["gat_fwd"]
     k5["launches"] = gat_launches["gat_bwd"]
@@ -2657,7 +2834,7 @@ def main() -> int:
                     generator=torch.Generator().manual_seed(8), device=cuda)
     gcn32 = GCN(100, 256, meta["num_classes"], len(FAN_OUT), device=cuda)
     gcn32.load_state_dict(gcn_model.state_dict())
-    gcn_trainer, _ = train_phase("training_gcn", gcn_model, gcn_counts, 40,
+    gcn_trainer, _ = train_phase("training_gcn", gcn_model, {**gcn_counts, "dropout": DROPOUT_PER_STEP}, 40,
                                  lambda *a: cpu_grad_check("training_gcn", gcn32, *a))
 
     gcn_cpu = copy.deepcopy(gcn_model).to("cpu")
@@ -2762,7 +2939,7 @@ def main() -> int:
     wstep_s = (time.perf_counter() - t0) / N_STEPS
     wlaunch = read_counts()
     want = {**dict.fromkeys(counters, 0), "sample_biased_alias": 3, "gather_rows": 1, "gather_mean": 3,
-            "slot_transpose": 2, "gather_mean_bwd": 2}
+            "slot_transpose": 2, "gather_mean_bwd": 2, "dropout": DROPOUT_PER_STEP}
     check(wlaunch == {k: v * N_STEPS for k, v in want.items()}, f"training_sage_biased launches {wlaunch}")
     k8["launches"] = wlaunch["sample_biased_alias"]
     wlosses = [float(m_["loss"]) for m_ in wmets]
@@ -2983,7 +3160,8 @@ def main() -> int:
 
     ht = HostTierTrainer(model=fresh_sage(12), fan_out=FAN_OUT, store=fstore, dedup_last=False, device=cuda)
     feats_res, launch_feat = host_tier_run("host_tier_features", ht, graph, {})
-    want = {"sample_uniform": 3, "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2}
+    want = {"sample_uniform": 3, "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2,
+            "dropout": DROPOUT_PER_STEP}
     check(launch_feat == {k: want.get(k, 0) * N_TIMED for k in counters},
           f"host_tier_features launches {launch_feat}")
     # the device-resident step on the same batches and graph, f32 features
@@ -3316,7 +3494,8 @@ def main() -> int:
         torch.cuda.synchronize()
         if rnd:
             single_ms.append((time.perf_counter() - t0) / N_STEPS * 1e3)
-    want = {"sample_uniform": 3, "gather_rows": 2, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2}
+    want = {"sample_uniform": 3, "gather_rows": 2, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2,
+            "dropout": DROPOUT_PER_STEP}
     check(d_launch == {k: want.get(k, 0) * N_STEPS for k in counters}, f"dist_training_sage launches {d_launch}")
     check(d_coll == {"all_to_all": 0, "all_reduce": 3 * N_STEPS, "all_gather": 0, "p2p": 0, "host_syncs": 0},
           f"dist_training_sage collectives {d_coll}")
@@ -3365,7 +3544,8 @@ def main() -> int:
           "epochs": CONV_EPOCHS, "epoch_steps": n_dc, "train_s": dconv_s, "epochs_overflow": int(dc_ovf),
           "eval_s": d_eval_s, "val_acc_sampled": d_val, "val_acc_min": VAL_ACC_MIN, **card})
     for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k3, "gather_mean"),
-                       (st_k, "slot_transpose"), (k3b, "gather_mean_bwd"), (k3c, "gather_mean_csr")):
+                       (st_k, "slot_transpose"), (k3b, "gather_mean_bwd"), (k3c, "gather_mean_csr"),
+                       (k10, "dropout")):
         kern["dist_launches_per_step"] = d_launch[name] / N_STEPS
 
     # dist_training_sage_sharded: owner-side sampling on the sharded graph
@@ -3430,7 +3610,8 @@ def main() -> int:
     gtr.train_step(graph, dlabels, *train_batches[1], ggen)
     torch.cuda.synchronize()
     gat_launch = read_counts()
-    check(gat_launch["gat_fwd"] == gat_launch["gat_bwd"] == 3, f"dist GAT step launches {gat_launch}")
+    check(gat_launch["gat_fwd"] == gat_launch["gat_bwd"] == 3 and gat_launch["dropout"] == DROPOUT_PER_STEP,
+          f"dist GAT step launches {gat_launch}")
     sg_w = ShardedGraph.build(hg_w, mesh)
     wtr_d = DistTrainer(model=dist_sage(52), fan_out=FAN_OUT, store=store_b, sgraph=sg_w, dedup_last=False,
                         frontier_caps=caps)
@@ -3441,8 +3622,8 @@ def main() -> int:
     wm_d = wtr_d.train_step(None, dlabels, *train_batches[1], wgen_d)
     torch.cuda.synchronize()
     w_launch = read_counts()
-    check(w_launch["sample_biased_alias"] == 3 and w_launch["sample_uniform"] == 0,
-          f"dist weighted sharded step launches {w_launch}")
+    check(w_launch["sample_biased_alias"] == 3 and w_launch["sample_uniform"] == 0
+          and w_launch["dropout"] == DROPOUT_PER_STEP, f"dist weighted sharded step launches {w_launch}")
     for kern, name in ((k4, "gat_fwd"), (k5, "gat_bwd")):
         kern["dist_launches_per_step"] = gat_launch[name]
     k8["dist_launches_per_step"] = w_launch["sample_biased_alias"]
@@ -3596,7 +3777,8 @@ def main() -> int:
         DistHostTrainer(model=fresh_sage(73), fan_out=FAN_OUT, store=dh_store, dedup_last=False),
         HostTierTrainer(model=fresh_sage(73), fan_out=FAN_OUT, store=ht_store, dedup_last=False, device=cuda),
         graph, host_batches, N_TIMED)
-    want = {"sample_uniform": 3, "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2}
+    want = {"sample_uniform": 3, "gather_rows": 1, "gather_mean": 3, "slot_transpose": 2, "gather_mean_bwd": 2,
+            "dropout": DROPOUT_PER_STEP}
     check(dh_launch == {k: want.get(k, 0) * N_TIMED for k in counters}, f"dist_host_features launches {dh_launch}")
     check(dh_coll == {"all_to_all": 0, "all_reduce": 3 * N_TIMED + 1, "all_gather": 0, "p2p": 0, "host_syncs": 0},
           f"dist_host_features collectives {dh_coll}")
@@ -3636,7 +3818,7 @@ def main() -> int:
           "val_acc_min": VAL_ACC_MIN, "seconds": time.perf_counter() - t_dh, **card})
     for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k2, "gather_rows_dma"), (k3, "gather_mean"),
                        (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose"),
-                       (k3c, "gather_mean_csr")):
+                       (k3c, "gather_mean_csr"), (k10, "dropout")):
         kern["dist_host_launches_per_batch"] = dh_launch[name] / N_TIMED
 
     # dist_host_full: the structure host-resident too, the 20% plan's
@@ -3872,7 +4054,8 @@ def main() -> int:
           "two_tier_phases_s": time.perf_counter() - t_tt, **card})
     for kern, name in ((k6, "sample_uniform"), (k1, "gather_rows"), (k2, "gather_rows_dma"), (k3, "gather_mean"),
                        (k3b, "gather_mean_bwd"), (k4, "gat_fwd"), (k5, "gat_bwd"), (st_k, "slot_transpose"),
-                       (k7, "sample_biased"), (k8, "sample_biased_alias"), (k3c, "gather_mean_csr")):
+                       (k7, "sample_biased"), (k8, "sample_biased_alias"), (k3c, "gather_mean_csr"),
+                       (k10, "dropout")):
         kern["two_tier_launches_per_step"] = tt_launch[name]
 
     # ---- 19. the apps, the dataset I/O and the scale smoke -------------------
@@ -3967,7 +4150,7 @@ def main() -> int:
               and all(set(e) == {"event", "ts", "epoch", "loss", "train_acc", "time_s"} for e in events[:2])
               and set(events[2]) == {"event", "ts", "test_acc"}, f"app_sage: metrics log {events}")
         check(all(sage_launch[k] > 0 for k in ("sample_uniform", "gather_rows", "gather_mean", "slot_transpose",
-                                              "gather_mean_bwd")), f"app_sage: launches {sage_launch}")
+                                              "gather_mean_bwd", "dropout")), f"app_sage: launches {sage_launch}")
         sage_steps = sum(e["steps"] for e in sage_res["epochs"])
         reset_counts()
         t0 = time.perf_counter()
@@ -3981,7 +4164,8 @@ def main() -> int:
               "trainer_ms_per_step_training_sage": trainer_ms_per_step["training_sage"],
               "test_acc": sage_res["test_acc"], "step": sage_res["step"], "metrics_events": [e["event"] for e in events],
               "launches": sage_launch, "train_steps": sage_steps,
-              "launches_per_train_step": {k: sage_launch[k] / sage_steps for k in ("slot_transpose", "gather_mean_bwd")},
+              "launches_per_train_step": {k: sage_launch[k] / sage_steps
+                                          for k in ("slot_transpose", "gather_mean_bwd", "dropout")},
               "seconds": sage_s,
               "resume": {"step": resumed["step"], "epochs": resumed["epochs"], "seconds": resume_s}, **card})
 
@@ -4002,8 +4186,8 @@ def main() -> int:
             (ep,) = r["epochs"]
             check(math.isfinite(ep["loss"]) and ep["steps"] > 0, f"app_variants {tag}: {ep}")
             check(r["world"] == 1 and r["device"] == "cuda:0", f"app_variants {tag}: world {r['world']} on {r['device']}")
-            want = {"gat": ("gat_fwd", "gat_bwd", "sample_uniform", "gather_rows"), "bias": ("sample_biased_alias",),
-                    "gcn": ("sample_uniform", "gather_rows")}.get(tag, () if spawned else ("sample_uniform",))
+            want = {"gat": ("gat_fwd", "gat_bwd", "sample_uniform", "gather_rows", "dropout"),
+                    "bias": ("sample_biased_alias",), "gcn": ("sample_uniform", "gather_rows", "dropout")}.get(tag, () if spawned else ("sample_uniform",))
             check(lc is None or all(lc[k] > 0 for k in want), f"app_variants {tag}: launches {lc}")
             if tag == "profile":
                 check(r["profile"] is not None and all(v >= 0 for v in r["profile"].values()),
@@ -4055,7 +4239,7 @@ def main() -> int:
           "min_kept_share": profile_device.min_kept_share, "launches_seen": profile_device.launches_seen,
           **card})
     emit({"kernels": [{**{k: kern[k] for k in keys}, **{k: kern[k] for k in ("launches_count", "hops", "all_hub") if k in kern}}
-                      for kern in (k6, k1, k2, k3, k3b, k3c, k4, k5, k9, k9b, st_k, k7, k8)]})
+                      for kern in (k6, k1, k2, k3, k3b, k3c, k4, k5, k9, k9b, k10, st_k, k7, k8)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

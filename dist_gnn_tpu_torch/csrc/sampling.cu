@@ -1,6 +1,7 @@
 // The neighbour samplers, one kernel per hop each, for Hopper, sm_90a:
 // K6 (uniform), K7 (weighted: Gumbel top-k, or the inverse CDF with
-// replacement) and K8 (weighted, from Walker alias tables).
+// replacement) and K8 (weighted, from Walker alias tables); and K10,
+// dropout, whose keep mask is the same uint32 hash.
 //
 // Plain C interface, loaded with ctypes by dist_gnn_tpu_torch/ops/sampling.py
 // (built by dist_gnn_tpu_torch/kernels/build.py).  Each entry point
@@ -72,10 +73,37 @@
 //   [0, N) are clamped into the graph and positions into [0, E), so no
 //   read leaves an allocation.
 //
+// dg_dropout (K10): out[r, c] = in[r, c] * scale where the element is
+//   kept, 0 where it is dropped, in the input's dtype (f32 or bf16), for
+//   ops/dropout.py.  Kept means prng.py dropout_keep's test,
+//   max((bits >> 8) * 2^-24, 2^-25) < (float)keep_prob with bits =
+//   mix32(key_r ^ c * 0x9E3779B9), computed here in native uint32 where the
+//   plain version emulates it in int64 (~23 elementwise passes of 8-byte
+//   elements over [S, H], and a bool mask autograd keeps).  scale is the
+//   f32 reciprocal of (float)(1 - rate): torch on the card divides by a
+//   Python scalar by multiplying by that reciprocal, so the output equals
+//   torch.where(keep, h / (1 - rate), 0) there bit for bit.  A dropout
+//   with a fixed mask is linear and its own transpose, so the backward is
+//   this kernel on the gradient with the same keys.  It replaces no TPU
+//   kernel: the JAX package's dropout is jnp (dist_gnn_tpu/ops/prng.py:138
+//   dropout_keep), which XLA fuses.
+//
+//   Bound by bytes: each element read once and written once (at the
+//   training cells' shapes 247 MB a step in bf16, 988 MB in f32: 0.074 and
+//   0.295 ms at 3.35 TB/s); the row keys are 8 bytes a row.  The hash is
+//   ~10 integer operations an element, under the memory time.  Design: one
+//   thread per 16-byte vector (8 bf16 or 4 f32), neighbouring threads on
+//   neighbouring addresses, one key load a thread, a vector never across
+//   two rows, as many blocks as vectors (grid-stride past 2^20 blocks); a
+//   row width or pointer off 16 bytes takes a thread per element instead.
+//   Indices are 32-bit: a call takes at most 2^31 elements (the training
+//   cells' largest layer holds 111M).
+//
 // Keys arrive as int64 holding uint32 values (ops/prng.py random_keys): the
 // kernel reads their low 32 bits.  indptr is int32 below 2^31 edges and
 // int64 above (graph.py), so the kernel is templated on its type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -1670,6 +1698,119 @@ int launch_sample_biased_alias(const void* indptr, const int32_t* indices, const
   return (int)cudaGetLastError();
 }
 
+// ---- K10: dropout ----------------------------------------------------------
+
+constexpr float kUnit = 5.9604644775390625e-08f;   // 2^-24 (prng.py bits_to_uniform)
+constexpr float kFloor = 2.98023223876953125e-08f;  // 2^-25, the uniform's floor
+
+// Element (row key, col) is kept: prng.py dropout_keep's uniform of
+// mix32(key ^ col * golden), below keep_prob.  (bits >> 8) < 2^24 converts
+// to float exactly, and the product with 2^-24 is exact.
+__device__ __forceinline__ bool drop_keep(uint32_t key, uint32_t col, float keep_prob) {
+  const uint32_t bits = mix32(key ^ (col * kGolden));
+  return fmaxf((float)(bits >> 8) * kUnit, kFloor) < keep_prob;
+}
+
+constexpr int64_t kMaxDropoutElems = (int64_t)1 << 31;  // ops/dropout.py MAX_ELEMS
+
+// An element's bits (Bits), or a 32-bit word of a 16-byte vector: one f32
+// a word, or two bf16 (the low half first), as floats and back.  A bf16 is
+// the high half of the float it rounds, so widening is a shift, and
+// narrowing rounds to nearest even as torch's cast on the card does.
+template <typename T>
+struct Words;
+
+template <>
+struct Words<float> {
+  using Bits = uint32_t;
+  static constexpr int kPer = 1;
+  __device__ static float get(uint32_t w, int) { return __uint_as_float(w); }
+  __device__ static uint32_t put(float v, int) { return __float_as_uint(v); }
+};
+
+template <>
+struct Words<__nv_bfloat16> {
+  using Bits = uint16_t;
+  static constexpr int kPer = 2;
+  __device__ static float get(uint32_t w, int i) {
+    return __uint_as_float(i ? (w & 0xffff0000u) : (w << 16));
+  }
+  __device__ static uint32_t put(float v, int i) {
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    return i ? b << 16 : b;
+  }
+};
+
+__device__ __forceinline__ float drop_value(float x, bool keep, float scale) {
+  return keep ? __fmul_rn(x, scale) : 0.0f;
+}
+
+// One thread per 16-byte vector of a row (H * sizeof(T) % 16 == 0, both
+// pointers 16-byte aligned): 4 f32 or 8 bf16 elements, one row key.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dropout_vec_kernel(const uint4* __restrict__ in, const int64_t* __restrict__ keys,
+                   uint4* __restrict__ out, uint32_t n_vec, uint32_t vec_per_row, float keep_prob,
+                   float scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  using W = Words<T>;
+  for (uint32_t v = blockIdx.x * kThreads + threadIdx.x; v < n_vec; v += gridDim.x * kThreads) {
+    const uint32_t r = v / vec_per_row;
+    const uint32_t c0 = (uint32_t)((v - r * vec_per_row) * kVec);
+    const uint32_t key = (uint32_t)keys[r];
+    const uint4 x = in[v];
+    uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t y = 0;
+#pragma unroll
+      for (int i = 0; i < W::kPer; ++i) {
+        const bool keep = drop_keep(key, c0 + j * W::kPer + i, keep_prob);
+        y |= W::put(drop_value(W::get(w[j], i), keep, scale), i);
+      }
+      w[j] = y;
+    }
+    out[v] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Any width or alignment: one thread per element.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dropout_scalar_kernel(const typename Words<T>::Bits* __restrict__ in, const int64_t* __restrict__ keys,
+                      typename Words<T>::Bits* __restrict__ out, uint32_t n, uint32_t H, float keep_prob,
+                      float scale) {
+  using W = Words<T>;
+  for (uint32_t e = blockIdx.x * kThreads + threadIdx.x; e < n; e += gridDim.x * kThreads) {
+    const uint32_t r = e / H;
+    const bool keep = drop_keep((uint32_t)keys[r], e - r * H, keep_prob);
+    out[e] = (typename W::Bits)W::put(drop_value(W::get(in[e], 0), keep, scale), 0);
+  }
+}
+
+// At most 2^31 elements, so a 32-bit index and its grid-stride step (at
+// most kMaxBlocks * kThreads) stay below 2^32.
+template <typename T>
+int launch_dropout(const void* in, const int64_t* keys, void* out, int64_t S, int64_t H, int vec,
+                   float keep_prob, float scale, cudaStream_t stream) {
+  using Bits = typename Words<T>::Bits;
+  const int64_t n = S * H;
+  if (vec != 1 && (vec != 16 / (int)sizeof(T) || (H * (int64_t)sizeof(T)) % 16 != 0 ||
+                   (reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (vec > 1) {
+    const int64_t n_vec = n / vec;
+    dropout_vec_kernel<T><<<grid_for(n_vec, kThreads), kThreads, 0, stream>>>(
+        static_cast<const uint4*>(in), keys, static_cast<uint4*>(out), (uint32_t)n_vec,
+        (uint32_t)(H / vec), keep_prob, scale);
+  } else {
+    dropout_scalar_kernel<T><<<grid_for(n, kThreads), kThreads, 0, stream>>>(
+        static_cast<const Bits*>(in), keys, static_cast<Bits*>(out), (uint32_t)n, (uint32_t)H,
+        keep_prob, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1758,6 +1899,24 @@ int dg_sample_biased_alias(const void* indptr, int indptr_int64, const int32_t* 
   return launch_sample_biased_alias<int32_t>(indptr, indices, probs, alias_prob, alias_idx, seeds,
                                              bits, gkeys, ids, mask, shortfall, B, k, n_nodes,
                                              n_edges, replace, sms, st);
+}
+
+// K10.  in and out [S, H] contiguous, dtype 0 = float32, 1 = bfloat16;
+// keys [S] int64 holding uint32 values; out = in * scale where kept, 0
+// where dropped.  vec 1 takes the scalar kernel, 16 / sizeof(element) the
+// vector kernel (H * sizeof(element) a multiple of 16 and both pointers
+// 16-byte aligned, else cudaErrorInvalidValue).  S * H may be 0 and is at
+// most kMaxDropoutElems (else cudaErrorInvalidValue).
+int dg_dropout(const void* in, const int64_t* keys, void* out, int64_t S, int64_t H, int dtype,
+               int vec, float keep_prob, float scale, void* stream) {
+  if (S < 0 || H < 0 || (H > 0 && S > kMaxDropoutElems / H)) return (int)cudaErrorInvalidValue;
+  if (S * H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_dropout<float>(in, keys, out, S, H, vec, keep_prob, scale, st);
+    case 1: return launch_dropout<__nv_bfloat16>(in, keys, out, S, H, vec, keep_prob, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -16,7 +16,7 @@ the CPU that layer takes :func:`contiguous_mean`, the JAX package's
 reshape-sum, and the others ``spmm.gather_mean``.  K3 is differentiable
 (its backward is a kernel too), so training reaches every layer.  In train
 mode, dropout follows the ReLU of every hidden layer, with one uint32 key
-per row (``prng.dropout_keep``).
+per row (``prng.dropout_keep``'s mask; on the card K10, ``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from dist_gnn_tpu_torch.ops import prng
+from dist_gnn_tpu_torch.ops.dropout import dropout
 from dist_gnn_tpu_torch.ops.gather import gather_mean
 from dist_gnn_tpu_torch.sampler import Block
 from dist_gnn_tpu_torch.utils import trace
@@ -53,10 +54,12 @@ def _key_source(rng) -> Callable[[int, torch.device], torch.Tensor]:
 
 
 def _dropout(h: torch.Tensor, row_keys: torch.Tensor, rate: float) -> torch.Tensor:
-    """Inverted dropout: keep with probability 1 - rate, scale by 1/(1 - rate)."""
+    """Inverted dropout: keep with probability 1 - rate, scale by 1/(1 - rate)
+    (``ops/dropout.py``: K10 on the card).  Counts its elements in the
+    trace counter ``dropout.elems``."""
     with trace.span("forward.dropout"):
-        keep = prng.dropout_keep(row_keys, h.shape, 1.0 - rate)
-        return torch.where(keep, h / (1.0 - rate), 0)
+        trace.count("dropout.elems", h.numel())
+        return dropout(h, row_keys, rate)
 
 
 def contiguous_mean(h: torch.Tensor, block: Block) -> torch.Tensor:

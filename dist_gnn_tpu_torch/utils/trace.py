@@ -8,7 +8,8 @@ and ``optimizer``; ``sampler.blocks_from_hops``: ``sample.draw`` and
 ``full_graph_inference``: ``infer_pass`` holding ``infer.upload``, and
 ``infer.edge_walk`` and ``infer.dense`` per layer) and count the frontier's
 valid and allotted rows per hop (``sample.frontier_rows``,
-``sample.frontier_alloc``).
+``sample.frontier_alloc``) and the elements each dropout layer masks
+(``dropout.elems``).
 
 Off, :func:`span` is one flag check that returns a shared no-op context:
 it reads no clock, launches nothing and never waits for the card, and

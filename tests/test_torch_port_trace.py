@@ -187,7 +187,9 @@ def test_frontier_rows_count_the_valid_slots(data, tracing):
     _, counters, _ = trace.drain()
     want = sum(int(b["frontier_mask"].sum()) for blocks in kept for b in blocks)
     alloc = sum(b["frontier_mask"].numel() for blocks in kept for b in blocks)
-    assert counters == {"sample.frontier_rows": want, "sample.frontier_alloc": alloc}
+    # each hidden layer's dropout masks its [S, 16] output once
+    drops = sum(b["seeds"].shape[0] * 16 for blocks in kept for b in blocks[:-1])
+    assert counters == {"sample.frontier_rows": want, "sample.frontier_alloc": alloc, "dropout.elems": drops}
 
 
 def test_tracing_changes_nothing_the_step_computes(data):
